@@ -1,0 +1,276 @@
+"""The accelerator session API — ``repro_torch.build``.
+
+Counterpart of ``repro/api.py`` for the integer inference and serving
+path::
+
+    import repro_torch
+    from repro_torch.core.qlstm import QLSTMConfig
+    from repro_torch.core.accelerator import AcceleratorConfig
+
+    acc = repro_torch.build(QLSTMConfig(), AcceleratorConfig())  # on CUDA
+    acc.quantize()                           # float master -> integer codes
+    y = acc.infer(x, path="int")             # fused CUDA kernels
+
+The session owns the float master params, the quantised params, the
+resolved ``plan()`` and the ``device`` everything runs on.  Sessions run
+on the CUDA card unless the caller asks for another device
+(``build(..., device="cpu")``, as the tests do); with no card and no
+device given, ``build`` raises.  ``infer``/``serve`` dispatch through the
+backend registry (``ref`` | ``pallas`` | ``xla``); torch runs eagerly, so
+the callables returned by ``compiled*`` are plain closures cached per
+engine.
+
+Not ported yet: ``train_qat`` and the ``qat`` path (training slice),
+``replicate`` and ``build_cluster`` (cluster tier), ``report`` and
+``measure_scenario`` (energy and explorer slices).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch import backends, cells
+from repro_torch.core import fixed_point as fxp
+from repro_torch.core.accelerator import (AcceleratorConfig, plan as resolve_plan,
+                                          resolve_model, sync_accelerator)
+from repro_torch.core.qlstm import QLSTMConfig, tree_to
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+PATHS = ("float", "int")
+
+
+def _resolve_device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch sessions run on a CUDA card and none is available; "
+            "pass device='cpu' to run the plain torch versions on the CPU")
+    return torch.device("cuda")
+
+
+def build(model: Optional[QLSTMConfig] = None,
+          accel: Optional[AcceleratorConfig] = None, *,
+          params: Optional[Params] = None, seed: int = 0,
+          device: Union[str, torch.device, None] = None) -> "Accelerator":
+    """Compile a (model, accelerator) configuration into a session.
+
+    ``params`` seeds the session with float master weights (a params dict
+    of tensors, e.g. from ``repro_torch.convert.params_from_reference``);
+    otherwise they are drawn from a ``torch.Generator`` seeded with
+    ``seed``.  ``device`` defaults to CUDA."""
+    return Accelerator(model or QLSTMConfig(), accel or AcceleratorConfig(),
+                       params=params, seed=seed, device=device)
+
+
+class Accelerator:
+    """A built accelerator: params + resolved plan + dispatchable
+    datapaths on one device.  Lifecycle: ``build`` -> ``quantize`` ->
+    ``infer`` / ``serve``; stage methods return ``self``."""
+
+    def __init__(self, model: QLSTMConfig, accel: AcceleratorConfig, *,
+                 params: Optional[Params] = None, seed: int = 0,
+                 device: Union[str, torch.device, None] = None):
+        self.device = _resolve_device(device)
+        self.model = resolve_model(model, accel)
+        self.accel = sync_accelerator(self.model, accel)
+        self.cell = cells.get(self.model.cell)
+        self.plan = resolve_plan(self.model, self.accel)
+        # Fail at build, not first infer: an explicit engine that cannot
+        # run this configuration, or a kernel that cannot be built.
+        if self.accel.backend != "auto":
+            backends.select(self.model, self.accel)
+        self._prepare(backends.get(self.plan["backend"]))
+        if params is not None:
+            self.params: Params = tree_to(params, self.device)
+        else:
+            gen = torch.Generator().manual_seed(seed)
+            self.params = self.cell.init_params(self.model, gen,
+                                                device=self.device)
+        self.qparams: Optional[Params] = None
+        self._fns: Dict[Tuple[str, str], Any] = {}
+
+    def _prepare(self, bk: backends.Backend) -> backends.Backend:
+        if bk.prepare is not None:
+            bk.prepare(self.device)
+        return bk
+
+    def _select(self, backend: Optional[str]) -> backends.Backend:
+        return self._prepare(backends.select(self.model, self.accel,
+                                             override=backend))
+
+    def _select_stateful(self, backend: Optional[str]) -> backends.Backend:
+        return self._prepare(backends.select_stateful(
+            self.model, self.accel, override=backend))
+
+    # -- quantisation -------------------------------------------------------
+
+    def quantize(self) -> "Accelerator":
+        """Float master weights -> integer codes (weights in (a,b); biases
+        at the wide accumulator precision)."""
+        self.qparams = self.cell.quantize_params(self.params, self.model)
+        self._fns = {k: fn for k, fn in self._fns.items()
+                     if not k[0].startswith("int")}
+        return self
+
+    # -- inference ----------------------------------------------------------
+
+    def _input(self, x) -> Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def infer(self, x, path: str = "float",
+              backend: Optional[str] = None) -> Tensor:
+        """x: (B, T, M) float -> (B, P) float on the session's device.
+        ``path``: ``float`` or ``int`` (bit-exact integer datapath,
+        dequantised at the boundary); ``backend`` overrides the plan's
+        engine for the int path."""
+        return self._fn(path, backend)(x)
+
+    def infer_int(self, x_int, backend: Optional[str] = None) -> Tensor:
+        """Integer codes in, integer codes out — the raw accelerator
+        boundary."""
+        self._require_quantized()
+        bk = self._select(backend)
+        return bk.run(self.qparams, torch.as_tensor(x_int, device=self.device),
+                      self.model, self.accel)
+
+    def compiled(self, path: str = "int", backend: Optional[str] = None):
+        """The cached entry point for (path, backend): a callable
+        ``(B, T, M) float -> (B, P) float``."""
+        return self._fn(path, backend)
+
+    def init_state(self, batch: int):
+        """The reset cross-window carry for ``compiled_stateful``: per
+        layer, the cell's zero int32 (batch, hidden) tensors."""
+        return cells.init_state(self.model, batch, device=self.device)
+
+    def compiled_stateful(self, backend: Optional[str] = None):
+        """The cached STATEFUL int-path entry point: ``((B, T, M) float,
+        state) -> ((B, P) float, new_state)``.  Feeding a stream window by
+        window with the carried state is bit-identical to one call on the
+        concatenated sequence."""
+        self._require_quantized()
+        bk = self._select_stateful(backend)
+        key = ("int_stateful", bk.name)
+        if key not in self._fns:
+            qparams, model, accel = self.qparams, self.model, self.accel
+
+            def stateful_path(x, state):
+                x_int = fxp.quantize(self._input(x), model.fxp)
+                y_int, new_state = bk.run_stateful(qparams, x_int, model,
+                                                   accel, state)
+                return fxp.dequantize(y_int, model.fxp), new_state
+
+            self._fns[key] = stateful_path
+        return self._fns[key]
+
+    def init_state_table(self, max_slots: int) -> Tensor:
+        """The reset device-resident state table for
+        ``compiled_stateful_slots``: zero ``(max_slots + 2, L, S, H)``
+        int32 on the session's device.  Rows ``max_slots`` (ZERO) and
+        ``max_slots + 1`` (TRASH) follow the slot kernel's conventions."""
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        return torch.zeros((max_slots + 2, *self.plan["state_shape"]),
+                           dtype=torch.int32, device=self.device)
+
+    def compiled_stateful_slots(self, backend: Optional[str] = None):
+        """The cached device-resident-state entry point: ``((B, T, M)
+        float, table, gather_slots, scatter_slots) -> ((B, P) float,
+        new_table)``.  The fused engine gathers and scatters inside its
+        kernel; ``ref``/``xla`` use the generic adapter.  Bit-identical to
+        ``compiled_stateful`` fed the host-gathered carries."""
+        self._require_quantized()
+        bk = self._select_stateful(backend)
+        key = ("int_stateful_slots", bk.name)
+        if key not in self._fns:
+            impl = bk.run_stateful_slots
+            if impl is None:
+                from repro_torch.backends.common import run_slots_via_state
+                impl = lambda *a: run_slots_via_state(bk.run_stateful, *a)
+            qparams, model, accel = self.qparams, self.model, self.accel
+
+            def slot_path(x, table, gather_slots, scatter_slots):
+                x_int = fxp.quantize(self._input(x), model.fxp)
+                y_int, new_table = impl(qparams, x_int, model, accel, table,
+                                        gather_slots, scatter_slots)
+                return fxp.dequantize(y_int, model.fxp), new_table
+
+            self._fns[key] = slot_path
+        return self._fns[key]
+
+    def degradation_ladder(self, backend: Optional[str] = None,
+                           stateful: bool = True) -> Tuple[str, ...]:
+        """Ordered engine names the serving tier falls back through on
+        repeated backend failure (fastest first, all bit-identical).  On a
+        CUDA session it ends at the fused kernels' engine, so a kernel
+        failure is never served by a plain engine."""
+        return backends.degradation_ladder(self.model, self.accel,
+                                           override=backend,
+                                           stateful=stateful,
+                                           device=self.device)
+
+    def _require_quantized(self):
+        if self.qparams is None:
+            raise RuntimeError(
+                "the session is not quantised: call .quantize() before the "
+                "int path (build -> quantize -> infer/serve)")
+
+    def _fn(self, path: str, backend: Optional[str]):
+        """Cached entry point for (path, backend)."""
+        if path not in PATHS:
+            raise ValueError(f"path must be one of {PATHS}, got {path!r} "
+                             f"(the qat path waits for the training slice)")
+        if backend is not None and path != "int":
+            raise ValueError(
+                f"backend={backend!r} only applies to path='int'; the "
+                f"{path!r} path runs the float graph")
+        model = self.model
+        if path == "int":
+            self._require_quantized()
+            bk = self._select(backend)
+            key = (path, bk.name)
+        else:
+            key = (path, "plan")
+        if key in self._fns:
+            return self._fns[key]
+        if path == "float":
+            params, fwd = self.params, self.cell.forward_float
+            fn = lambda x: fwd(params, self._input(x), model)
+        else:
+            qparams, accel = self.qparams, self.accel
+
+            def fn(x):
+                x_int = fxp.quantize(self._input(x), model.fxp)
+                return fxp.dequantize(bk.run(qparams, x_int, model, accel),
+                                      model.fxp)
+
+        self._fns[key] = fn
+        return fn
+
+    # -- serving ------------------------------------------------------------
+
+    def serve(self, stream: Iterable[Union[Tensor, np.ndarray]],
+              batch: int = 256, path: str = "int",
+              backend: Optional[str] = None) -> Iterator[np.ndarray]:
+        """Batched streaming inference: windows of shape (T, M) in,
+        predictions of shape (P,) out, in submission order — a thin
+        wrapper over ``repro_torch.serving.serve_windows`` (the final
+        partial wave is padded and the padding's outputs dropped)."""
+        from repro_torch.serving import serve_windows
+        return serve_windows(self, stream, batch=batch, path=path,
+                             backend=backend)
+
+    def __repr__(self) -> str:
+        return (f"Accelerator(fxp={self.model.fxp}, "
+                f"unit={self.plan['compute_unit']}, "
+                f"wmem={self.plan['weight_memory']}, "
+                f"alu={self.plan['alu_mode']}, "
+                f"hs={self.plan['hs_method']}, "
+                f"backend={self.plan['backend']}, device={self.device}, "
+                f"quantized={self.qparams is not None})")

@@ -1,0 +1,34 @@
+"""``repro_torch.serving`` — the stateful streaming serving subsystem
+(counterpart of ``repro.serving``).
+
+Many named client streams multiplexed onto one ``Accelerator`` session,
+each stream's recurrent carry held across windows (in a host LRU store or
+a device-resident slot table that the fused slot kernel gathers from and
+scatters to), waves double-buffered against device compute, tail latency
+bounded by a deadline, and guarded execution down the bit-identical
+engine ladder.
+
+Not ported yet: the seeded fault injector (``faults``), the cluster tier
+(``cluster``, ``routing``).
+"""
+
+from repro_torch.serving.device_state import (DeviceStateStore,  # noqa: F401
+                                              SlotAllocator)
+from repro_torch.serving.metrics import MetricsSink, WaveRecord  # noqa: F401
+from repro_torch.serving.resilience import (ExecutionGuard,      # noqa: F401
+                                            GuardOutcome, ResiliencePolicy,
+                                            WaveTimeout)
+from repro_torch.serving.scheduler import (OverloadPolicy,       # noqa: F401
+                                           ServerOverloaded, Wave,
+                                           WaveScheduler)
+from repro_torch.serving.server import (ServingConfig, StreamResult,  # noqa: F401
+                                        StreamServer, serve_windows)
+from repro_torch.serving.state import StateStore, StreamState    # noqa: F401
+
+__all__ = [
+    "DeviceStateStore", "ExecutionGuard", "GuardOutcome", "MetricsSink",
+    "OverloadPolicy", "ResiliencePolicy", "ServerOverloaded",
+    "ServingConfig", "SlotAllocator", "StateStore", "StreamResult",
+    "StreamServer", "StreamState", "Wave", "WaveRecord", "WaveScheduler",
+    "WaveTimeout", "serve_windows",
+]
