@@ -5,24 +5,42 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels of ``src/repro_torch/csrc`` and drives the
-port's main path — ``build`` -> ``quantize`` -> ``infer(path="int")`` and
-a stateful ``StreamServer`` — at the full width of the paper's model
-(``QLSTMConfig()``: M=1, H=20, L=1, T=6, (4,8) codes), in phases:
+It builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
+source, all started together) and drives the port's two paths: the
+paper's integer LSTM — ``build`` -> ``quantize`` -> ``infer(path="int")``
+and a stateful ``StreamServer`` — at the full width of the paper's model
+(``QLSTMConfig()``: M=1, H=20, L=1, T=6, (4,8) codes), and the
+``kernels.ops`` entry point at the published widths of qwen1.5-0.5B
+(``configs/qwen15_05b.py``: d_model 1024, d_ff 2816, 16 heads of 64, a
+2048-token prefill), in phases:
 
-  1. the card, torch/CUDA versions and the kernel build time;
-  2. every kernel against its plain torch version on the card, bit for
-     bit (tolerance 0), across (4,8)/(6,8)/(8,16)/(8,24), arithmetic/step,
-     mxu/vpu, 1-3 layers, batches of 1, 37 and 256, weights in shared
-     and in device memory, and slot permutations with ZERO/TRASH rows;
+  1. the card, torch/CUDA versions and the kernels' build time;
+  2. every kernel against its plain torch version on the card: the LSTM
+     kernels bit for bit (tolerance 0) across (4,8)/(6,8)/(8,16)/(8,24),
+     arithmetic/step, mxu/vpu, 1-3 layers, batches of 1, 37 and 256,
+     weights in shared and in device memory, and slot permutations with
+     ZERO/TRASH rows; quant_matmul in both modes (tolerance 0) at shapes
+     that are no multiple of a tile, with int8, int16 and int32 codes
+     whose sums wrap int32; HardSigmoid* (three methods) and HardTanh
+     over every code of (4,8)/(6,8)/(8,10)/(8,16) (tolerance 0); flash
+     attention on the reference's five shape cases, hd 128 and 256, rows
+     with no key in their window, GQA through ``mha_flash`` (2e-5 abs/rel
+     in f32) and bf16 (1e-2);
   3. ``infer`` on 256 windows through the fused kernel, equal to the
-     ``ref`` engine, with the stack kernel's launch count read;
+     ``ref`` engine, with every kernel's launch count read;
   4. a ``StreamServer`` (batch 64, device-resident state) serving 128
      streams x 6 windows, each stream equal to its stateful ``ref`` run
      and to one concatenated run, one slot-kernel launch per wave, no
      degradation, and no plain engine below the kernel on its ladder;
-  5. CUDA-event timings of each kernel and its plain version at the
-     shapes of phases 3 and 4, and the server's per-wave latency.
+  4b. the ``ops`` path: ``quant_matmul`` and ``quant_matmul_requant`` on a
+     (2048, 1024) x (1024, 2816) int8 product, the three HardSigmoid*
+     methods and HardTanh on the (2048, 2816) requantised codes, causal
+     ``mha_flash`` on (1, 2048, 16, 64) f32 q/k/v, and ``qlstm_seq`` at
+     the paper's model width; each result equal to its plain version
+     (attention within 2e-5), each kernel launched, K2 exactly once;
+  5. CUDA-event timings of each kernel, its plain version and, where one
+     PyTorch call computes the same function, that call, at the shapes
+     of phases 3, 4 and 4b, and the server's per-wave latency.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -35,15 +53,24 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # H100 SXM data-sheet peaks (dense): device memory 3.35 TB/s; int8
-# tensor-core rate 1,979 TOP/s, the card's peak for 8-bit integer codes.
+# tensor-core rate 1,979 TOP/s, the card's peak for 8-bit integer codes;
+# fp32 on the CUDA cores 67 TFLOP/s (TF32's 495 is off limits: it cannot
+# hold attention's 2e-5 tolerance).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12
+
+# qwen1.5-0.5B (configs/qwen15_05b.py) at a 2048-token prefill.
+PREFILL, D_MODEL, D_FF, HEADS, HEAD_DIM = 2048, 1024, 2816, 16, 64
+HS_METHODS = ("arithmetic", "step", "1to1")
 
 
 def check(cond, msg):
@@ -129,6 +156,41 @@ def max_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
+def close_err(got, want, tol):
+    """max |got - want| after checking |got - want| <= tol + tol * |want|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), "non-finite attention output")
+    check(bool((diff <= tol + tol * want.abs()).all()),
+          f"attention differs from its plain version by {float(diff.max())}"
+          f" (tolerance {tol})")
+    return float(diff.max())
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_counts(mods):
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def read_counts(mods):
+    return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+
+def codes(rng, shape, bits, dev, lo=None, hi=None):
+    lo = -(1 << (bits - 1)) if lo is None else lo
+    hi = (1 << (bits - 1)) if hi is None else hi
+    dt = torch.int8 if bits <= 8 else torch.int16 if bits <= 16 else torch.int32
+    return torch.as_tensor(rng.integers(lo, hi, shape), device=dev).to(dt)
+
+
 def phase2_kernels_vs_plain(qc, fxp, dev):
     """Each kernel against its plain version on the card; returns the
     largest absolute difference seen per kernel (must be 0)."""
@@ -200,6 +262,149 @@ def phase2_kernels_vs_plain(qc, fxp, dev):
     return errs, n
 
 
+def phase2_ops_kernels(qm, ha, fa, ops, fxp, dev):
+    """quant_matmul, HardSigmoid*/HardTanh and flash attention against
+    their plain versions on the card; returns (max error by kernel, case
+    count).  Raises past a tolerance."""
+    rng = np.random.default_rng(3)
+    errs = {"quant_matmul_int32": 0, "quant_matmul_requant": 0,
+            "hard_sigmoid_star": 0, "hard_tanh": 0, "flash_attention": 0.0}
+    n = 0
+    for bits, shapes in ((8, [(1, 1, 1), (67, 129, 45), (130, 64, 257),
+                              (300, 1000, 77)]),
+                         (16, [(33, 1000, 17), (65, 96, 130)]),
+                         (24, [(7, 300, 70)])):
+        for m, k, nn in shapes:
+            x, w = codes(rng, (m, k), bits, dev), codes(rng, (k, nn), bits, dev)
+            if bits > 8 and k >= 300:        # these sums leave int32
+                exact = x.double() @ w.double()
+                check(float(exact.abs().max()) > 2 ** 31, "no int32 wrap exercised")
+            for mode, cfg in (("int32", None),
+                              ("requant", fxp.FixedPointConfig(4, bits))):
+                got = qm.quant_matmul(x, w, out_mode=mode, cfg=cfg)
+                torch.cuda.synchronize()
+                want = qm.quant_matmul_plain(x, w, out_mode=mode, cfg=cfg)
+                check(got.dtype == want.dtype, f"quant_matmul dtype {got.dtype}")
+                key = f"quant_matmul_{mode}"
+                errs[key] = max(errs[key], max_err(got, want))
+                n += 1
+    for a, b in ((4, 8), (6, 8), (8, 10), (8, 16)):
+        cfg = fxp.FixedPointConfig(a, b)
+        xs = torch.arange(cfg.int_min, cfg.int_max + 1, device=dev).to(
+            cfg.storage_dtype)
+        for view in (xs, xs[3:], xs.reshape(-1, 16)):
+            for method in HS_METHODS:
+                got = ha.hard_sigmoid_star(view, cfg=cfg, method=method)
+                torch.cuda.synchronize()
+                want = ha.hard_sigmoid_star_plain(view, cfg=cfg, method=method)
+                check(got.dtype == view.dtype and got.shape == view.shape,
+                      "HardSigmoid* changed dtype or shape")
+                errs["hard_sigmoid_star"] = max(errs["hard_sigmoid_star"],
+                                                max_err(got, want))
+                n += 1
+            got = ha.hard_tanh(view, cfg=cfg)
+            torch.cuda.synchronize()
+            errs["hard_tanh"] = max(errs["hard_tanh"],
+                                    max_err(got, ha.hard_tanh_plain(view, cfg=cfg)))
+            n += 1
+    # The reference's five cases, then hd 128 and 256 (T != S, a window),
+    # then a window that leaves the last rows no key (the softmax's mean).
+    for t, s_len, hd, causal, window in ((64, 64, 32, True, None),
+                                         (64, 64, 32, False, None),
+                                         (96, 96, 16, True, 24),
+                                         (40, 72, 32, False, None),
+                                         (128, 128, 64, True, None),
+                                         (300, 300, 128, True, None),
+                                         (100, 257, 256, False, 40),
+                                         (100, 40, 32, False, 10)):
+        q, k, v = (torch.as_tensor(rng.normal(0, 1, (3, ln, hd)),
+                                   dtype=torch.float32, device=dev)
+                   for ln in (t, s_len, s_len))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      close_err(got, want, 2e-5))
+        n += 1
+    q = torch.as_tensor(rng.normal(0, 1, (2, 128, 8, 64)), dtype=torch.float32,
+                        device=dev)
+    k, v = (torch.as_tensor(rng.normal(0, 1, (2, 128, 2, 64)),
+                            dtype=torch.float32, device=dev) for _ in range(2))
+    got = ops.mha_flash(q, k, v, causal=True)          # GQA: 8 heads on 2
+    torch.cuda.synchronize()
+    errs["flash_attention"] = max(errs["flash_attention"], close_err(
+        got, ops.mha_flash(q, k, v, causal=True, use_kernel=False), 2e-5))
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    got = ops.mha_flash(qb, kb, vb, causal=True, window=50)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16, f"bf16 attention returned {got.dtype}")
+    bf16_err = close_err(got, ops.mha_flash(qb, kb, vb, causal=True, window=50,
+                                            use_kernel=False), 1e-2)
+    n += 2
+    for name, e in errs.items():
+        check(name == "flash_attention" or e == 0,
+              f"kernel {name} differs from its plain version by {e}")
+    return errs, bf16_err, n
+
+
+def phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig, dev, mods):
+    """The ``kernels.ops`` path at qwen1.5-0.5B widths and the paper's
+    LSTM width; returns (inputs, launch counts, max errors)."""
+    rng = np.random.default_rng(4)
+    cfg = fxp.FXP_4_8
+    # Activation codes of a (4,8) layer and small weights, so that the
+    # requantised codes land in HardSigmoid*'s linear region and not only
+    # in saturation; both operands are int8.
+    x = codes(rng, (PREFILL, D_MODEL), 8, dev, -16, 16)
+    w = codes(rng, (D_MODEL, D_FF), 8, dev, -2, 3)
+    q, k, v = (torch.as_tensor(rng.normal(0, 1, (1, PREFILL, HEADS, HEAD_DIM)),
+                               dtype=torch.float32, device=dev) for _ in range(3))
+    model = QLSTMConfig()
+    lstm = rand_stack(rng, model.seq_len, 256, model.input_size,
+                      model.hidden_size, 1, model.fxp, dev)
+    lstm_args = (lstm[0], lstm[1][0], lstm[2][0], lstm[3][0], model)
+
+    reset_counts(mods)
+    acc = ops.quant_matmul(x, w)
+    pre = ops.quant_matmul_requant(x, w, cfg)
+    hs = {m: ops.hard_sigmoid_star_int(pre, cfg, method=m) for m in HS_METHODS}
+    ht = ops.hard_tanh_int(pre, cfg)
+    att = ops.mha_flash(q, k, v, causal=True)
+    h_seq = ops.qlstm_seq(*lstm_args)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    want = {"int32": 1, "requant": 1, "hard_sigmoid_star": 3, "hard_tanh": 1,
+            "flash_attention": 1, "multilayer": 0, "seq": 1, "slot": 0}
+    check(launches == want, f"the ops path launched {launches}")
+
+    errs = {"quant_matmul_int32": max_err(acc, qm.quant_matmul_plain(x, w)),
+            "quant_matmul_requant": max_err(pre, qm.quant_matmul_plain(
+                x, w, out_mode="requant", cfg=cfg)),
+            "hard_sigmoid_star": max(max_err(hs[m], ha.hard_sigmoid_star_plain(
+                pre, cfg=cfg, method=m)) for m in HS_METHODS),
+            "hard_tanh": max_err(ht, ha.hard_tanh_plain(pre, cfg=cfg)),
+            "qlstm_seq": max(max_err(h_seq, ops.qlstm_seq(*lstm_args,
+                                                          use_kernel=False)),
+                             max_err(h_seq, qc.qlstm_seq_plain(
+                                 lstm[0], lstm[1][0], lstm[2][0], lstm[3][0],
+                                 cfg=model.fxp, hs_method="step")))}
+    for name, e in errs.items():
+        check(e == 0, f"ops path: {name} differs from its plain version by {e}")
+    errs["flash_attention"] = close_err(
+        att, ops.mha_flash(q, k, v, causal=True, use_kernel=False), 2e-5)
+    check(tuple(acc.shape) == tuple(pre.shape) == (PREFILL, D_FF) and
+          acc.dtype == torch.int32 and pre.dtype == torch.int8,
+          f"quant_matmul gave {tuple(acc.shape)} {acc.dtype} / {pre.dtype}")
+    check(tuple(att.shape) == (1, PREFILL, HEADS, HEAD_DIM), f"attention {att.shape}")
+    inside = float((pre.abs() < cfg.int_max).float().mean())
+    check(inside > 0.5, f"only {inside:.3f} of the requantised codes unsaturated")
+    check(len(torch.unique(hs["step"])) > 8, "HardSigmoid* never left saturation")
+    check(tuple(h_seq.shape) == (model.seq_len, 256, model.hidden_size) and
+          bool(h_seq.abs().sum() > 0), "qlstm_seq output empty or zero")
+    return dict(x=x, w=w, pre=pre, q=q, k=k, v=v, lstm=lstm_args,
+                unsaturated=inside), launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -209,9 +414,13 @@ def main() -> int:
     from repro_torch.core import fixed_point as fxp
     from repro_torch.core.accelerator import AcceleratorConfig
     from repro_torch.core.qlstm import QLSTMConfig, lstm_ops
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hard_act as ha
     from repro_torch.kernels import qlstm_cell as qc
+    from repro_torch.kernels import quant_matmul as qm
     from repro_torch.serving import StreamServer
+    mods = (qc, qm, ha, fa)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -220,22 +429,34 @@ def main() -> int:
 
     # -- phase 1: card, versions, build ------------------------------------
     t0 = time.perf_counter()
-    qc.load_library()
+    names = ("qlstm_cell", "quant_matmul", "hard_act", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
+        for fut in [pool.submit(_build.load_library, nm) for nm in names]:
+            fut.result()
+    for mod in mods:
+        mod.load_library()
     build_s = time.perf_counter() - t0
     log(f"phase 1: card: {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} | "
-        f"kernel build+load {build_s:.3f} s")
-    ptxas = _build.library_path("qlstm_cell").with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log("  ptxas:", line.strip())
+        f"kernel build+load {build_s:.3f} s ({len(names)} sources)")
+    for nm in names:
+        ptxas = _build.library_path(nm).with_suffix(".log")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "Compiling entry" in line:
+                    log(f"  ptxas {nm}:", line.strip())
 
     # -- phase 2: kernels vs plain versions --------------------------------
     t0 = time.perf_counter()
     errs, n_cases = phase2_kernels_vs_plain(qc, fxp, dev)
     log(f"phase 2: {n_cases} cases, max |kernel - plain| = {errs} "
         f"(tolerance 0) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs2, bf16_err, n2 = phase2_ops_kernels(qm, ha, fa, ops, fxp, dev)
+    errs.update(errs2)
+    log(f"phase 2: {n2} cases, max |kernel - plain| = {errs2} (tolerance 0; "
+        f"flash_attention 2e-5 abs/rel), bf16 attention {bf16_err} (1e-2) "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the session at full width --------------------------------
     model = QLSTMConfig()
@@ -245,12 +466,11 @@ def main() -> int:
     rng = np.random.default_rng(1)
     x = (rng.normal(0.0, 1.0, (256, model.seq_len, model.input_size)) * 0.7
          ).astype(np.float32)
-    for k in qc.LAUNCHES:
-        qc.LAUNCHES[k] = 0
+    reset_counts(mods)
     y = session.infer(x, path="int")
     torch.cuda.synchronize()
-    infer_launches = dict(qc.LAUNCHES)
-    check(infer_launches == {"multilayer": 1, "seq": 0, "slot": 0},
+    infer_launches = read_counts(mods)
+    check(infer_launches == {**{k: 0 for k in infer_launches}, "multilayer": 1},
           f"infer launched {infer_launches}")
     y_ref = session.infer(x, path="int", backend="ref")
     check(tuple(y.shape) == (256, model.out_features), f"shape {tuple(y.shape)}")
@@ -264,8 +484,7 @@ def main() -> int:
     n_streams, n_windows = 128, 6
     xs = (rng.normal(0.0, 1.0, (n_streams, n_windows, model.seq_len,
                                 model.input_size)) * 0.7).astype(np.float32)
-    for k in qc.LAUNCHES:
-        qc.LAUNCHES[k] = 0
+    reset_counts(mods)
     with StreamServer(session, batch=64, deadline_s=0.005,
                       max_streams=1024) as server:
         check(server.state_residency == "device", "server residency not device")
@@ -277,13 +496,13 @@ def main() -> int:
         rows = server.drain(timeout=600)
         summary = server.metrics_summary()
     torch.cuda.synchronize()
-    serve_launches = dict(qc.LAUNCHES)
+    serve_launches = read_counts(mods)
     check(len(rows) == n_streams * n_windows, f"{len(rows)} results")
     check(all(r.ok and r.backend == "pallas" and not r.state_reset for r in rows),
           "a result failed, reset or ran off the fused engine")
     check(summary["faults"]["degradations"] == 0, "the server degraded")
-    check(serve_launches["slot"] == summary["waves"] and
-          serve_launches["multilayer"] == serve_launches["seq"] == 0,
+    check(serve_launches == {**{k: 0 for k in serve_launches},
+                             "slot": summary["waves"]},
           f"launches {serve_launches} for {summary['waves']} waves")
     got = {(r.stream_id, r.seq): r.y for r in rows}
     ref_fn = session.compiled_stateful("ref")
@@ -304,6 +523,17 @@ def main() -> int:
         f"{summary['latency_ms']['p50']:.3f} ms p99 "
         f"{summary['latency_ms']['p99']:.3f} ms {summary['samples_per_s']:.1f} "
         f"samples/s (first run, cold)")
+
+    # -- phase 4b: the kernels.ops path --------------------------------------
+    t0 = time.perf_counter()
+    ins, ops_launches, ops_errs = phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig,
+                                            dev, mods)
+    log(f"phase 4b: ops path (quant_matmul {PREFILL}x{D_MODEL}x{D_FF} int8, "
+        f"requant (4,8) -> HardSigmoid* x3 + HardTanh on {PREFILL}x{D_FF} "
+        f"({ins['unsaturated']:.4f} of the codes unsaturated), causal mha_flash "
+        f"(1, {PREFILL}, {HEADS}, {HEAD_DIM}) f32, qlstm_seq T=6 B=256 H=20) "
+        f"equals the plain versions, max |err| {ops_errs}; launches "
+        f"{ops_launches} in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5: timings ----------------------------------------------------
     acts, sd = session.model.acts, session.model.fxp.storage_dtype
@@ -329,59 +559,128 @@ def main() -> int:
     w_bytes = sum(w.numel() * w.element_size() for w in wxs + whs) + \
         sum(b.numel() * 4 for b in bs)
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
     state_bytes = lambda b: 2 * L * b * H * 4
     k1_bytes = x3.numel() + w_bytes + 2 * state_bytes(256) + T * 256 * H
     k3_bytes = (x4.numel() + w_bytes + 2 * 64 * 4 + 2 * table.numel() * 4
                 + T * 64 * H)
+    launches = {k: infer_launches[k] + serve_launches[k] + ops_launches[k]
+                for k in infer_launches}
+    lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
-        ("qlstm_seq_multilayer", "src/repro/kernels/qlstm_cell.py:348",
-         "multilayer", infer_launches["multilayer"] + serve_launches["multilayer"],
-         errs["multilayer"],
-         lambda: qc.qlstm_seq_multilayer(x3, wxs, whs, bs, zeros, zeros, **kw),
-         lambda: qc.qlstm_seq_multilayer_plain(x3, wxs, whs, bs, zeros, zeros, **kw),
-         bound(k1_bytes, lstm_ops(model) * 256)),
-        # K2 is K1's kernel at one layer behind the ``qlstm_seq`` entry;
-        # infer and the server do not call that entry, so its main-path
-        # count is 0 and phase 2 is its check.
-        ("qlstm_seq", "src/repro/kernels/qlstm_cell.py:305",
-         "seq", infer_launches["seq"] + serve_launches["seq"],
-         errs["seq"],
-         lambda: qc.qlstm_seq(x3, wxs[0], whs[0], bs[0], h0=zeros[0], c0=zeros[0],
-                              return_state=True, **kw),
-         lambda: qc.qlstm_seq_plain(x3, wxs[0], whs[0], bs[0], h0=zeros[0],
-                                    c0=zeros[0], return_state=True, **kw),
-         bound(k1_bytes, lstm_ops(model) * 256)),
-        ("qlstm_seq_slot", "src/repro/kernels/qlstm_cell.py:401",
-         "slot", infer_launches["slot"] + serve_launches["slot"], errs["slot"],
-         lambda: qc.qlstm_seq_slot(x4, g, s, table, wxs, whs, bs, **kw),
-         lambda: qc.qlstm_seq_slot_plain(x4, g, s, table, wxs, whs, bs, **kw),
-         bound(k3_bytes, lstm_ops(model) * 64)),
+        dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
+             source=lstm_src, symbol="qlstm_stack_kernel", counter="multilayer",
+             err=errs["multilayer"],
+             kern=lambda: qc.qlstm_seq_multilayer(x3, wxs, whs, bs, zeros, zeros, **kw),
+             plain=lambda: qc.qlstm_seq_multilayer_plain(x3, wxs, whs, bs, zeros,
+                                                         zeros, **kw),
+             bound=bound(k1_bytes, lstm_ops(model) * 256, INT8_OPS_PER_S)),
+        # K2 is K1's kernel at one layer behind the ``qlstm_seq`` entry, which
+        # only ``ops.qlstm_seq`` calls (phase 4b).
+        dict(name="qlstm_seq", replaces="src/repro/kernels/qlstm_cell.py:305",
+             source=lstm_src, symbol="qlstm_stack_kernel", counter="seq",
+             err=max(errs["seq"], ops_errs["qlstm_seq"]),
+             kern=lambda: qc.qlstm_seq(x3, wxs[0], whs[0], bs[0], h0=zeros[0],
+                                       c0=zeros[0], return_state=True, **kw),
+             plain=lambda: qc.qlstm_seq_plain(x3, wxs[0], whs[0], bs[0], h0=zeros[0],
+                                              c0=zeros[0], return_state=True, **kw),
+             bound=bound(k1_bytes, lstm_ops(model) * 256, INT8_OPS_PER_S)),
+        dict(name="qlstm_seq_slot", replaces="src/repro/kernels/qlstm_cell.py:401",
+             source=lstm_src, symbol="qlstm_stack_kernel", counter="slot",
+             err=errs["slot"],
+             kern=lambda: qc.qlstm_seq_slot(x4, g, s, table, wxs, whs, bs, **kw),
+             plain=lambda: qc.qlstm_seq_slot_plain(x4, g, s, table, wxs, whs, bs, **kw),
+             bound=bound(k3_bytes, lstm_ops(model) * 64, INT8_OPS_PER_S)),
+    ]
+
+    # The ops path's shapes (phase 4b).
+    cfg48 = fxp.FXP_4_8
+    xq, wq, pre = ins["x"], ins["w"], ins["pre"]
+    mm_ops = 2 * PREFILL * D_MODEL * D_FF
+    mm_in = xq.numel() + wq.numel()
+    qmm_src = "src/repro_torch/csrc/quant_matmul.cu"
+    hact_src = "src/repro_torch/csrc/hard_act.cu"
+    thr, outs = ha.hard_act.step_table_tensors(
+        ha.hard_act.HardSigmoidStarSpec(cfg48), dev)
+    ht_lo, ht_hi = ha.hard_act.hard_tanh_bounds(cfg48)
+    ew_bytes = 2 * pre.numel()                       # codes in, codes out
+    # Attention on the kernel's (BH, T, hd) layout; the library call takes
+    # the same data as (B, H, T, hd).
+    q2, k2, v2 = (ins[n].transpose(1, 2).reshape(HEADS, PREFILL, HEAD_DIM)
+                  .contiguous() for n in ("q", "k", "v"))
+    q4, k4, v4 = (t.view(1, HEADS, PREFILL, HEAD_DIM) for t in (q2, k2, v2))
+    kept_pairs = HEADS * PREFILL * (PREFILL + 1) // 2   # causal (q, k) pairs
+    specs += [
+        dict(name="quant_matmul_int32", replaces="src/repro/kernels/quant_matmul.py:66",
+             source=qmm_src, symbol="qmm_dp4a_kernel", counter="int32",
+             err=max(errs["quant_matmul_int32"], ops_errs["quant_matmul_int32"]),
+             kern=lambda: qm.quant_matmul(xq, wq),
+             plain=lambda: qm.quant_matmul_plain(xq, wq),
+             library=lambda: torch._int_mm(xq, wq),
+             bound=bound(mm_in + 4 * PREFILL * D_FF, mm_ops, INT8_OPS_PER_S)),
+        dict(name="quant_matmul_requant", replaces="src/repro/kernels/quant_matmul.py:66",
+             source=qmm_src, symbol="qmm_dp4a_kernel", counter="requant",
+             err=max(errs["quant_matmul_requant"], ops_errs["quant_matmul_requant"]),
+             kern=lambda: qm.quant_matmul(xq, wq, out_mode="requant", cfg=cfg48),
+             plain=lambda: qm.quant_matmul_plain(xq, wq, out_mode="requant", cfg=cfg48),
+             bound=bound(mm_in + PREFILL * D_FF, mm_ops, INT8_OPS_PER_S)),
+        # Timed at the paper's method (step); the other two are logged.
+        dict(name="hard_sigmoid_star", replaces="src/repro/kernels/hard_act.py:74",
+             source=hact_src, symbol="hard_act_kernel", counter="hard_sigmoid_star",
+             err=max(errs["hard_sigmoid_star"], ops_errs["hard_sigmoid_star"]),
+             kern=lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method="step"),
+             plain=lambda: ha.hard_sigmoid_star_plain(pre, cfg=cfg48, method="step"),
+             # at least one operation per code, on the CUDA cores
+             bound=bound(ew_bytes + 4 * (thr.numel() + outs.numel()), pre.numel(),
+                         FP32_OPS_PER_S)),
+        dict(name="hard_tanh", replaces="src/repro/kernels/hard_act.py:105",
+             source=hact_src, symbol="hard_act_kernel", counter="hard_tanh",
+             err=max(errs["hard_tanh"], ops_errs["hard_tanh"]),
+             kern=lambda: ha.hard_tanh(pre, cfg=cfg48),
+             plain=lambda: ha.hard_tanh_plain(pre, cfg=cfg48),
+             library=lambda: torch.clamp(pre, ht_lo, ht_hi),
+             bound=bound(ew_bytes, pre.numel(), FP32_OPS_PER_S)),
+        dict(name="flash_attention", replaces="src/repro/kernels/flash_attention.py:88",
+             source="src/repro_torch/csrc/flash_attention.cu", symbol="flash_kernel",
+             counter="flash_attention",
+             err=max(errs["flash_attention"], ops_errs["flash_attention"]),
+             kern=lambda: fa.flash_attention(q2, k2, v2, causal=True),
+             plain=lambda: fa.flash_attention_plain(q2, k2, v2, causal=True),
+             library=lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+             bound=bound(4 * q2.numel() * 4, 4 * HEAD_DIM * kept_pairs,
+                         FP32_OPS_PER_S)),
     ]
     is_cuda = lambda e: str(e.device_type).endswith("CUDA")
     kernels = []
-    for name, replaces, counter, launches, err, kern, plain, (b_ms, b_by) in specs:
+    for sp in specs:
         # ms: device time of the wrapper's work (graph replay); call_ms:
         # one eager call as Python issues it; kernel_ms: the CUDA kernel
         # alone, from the profiler.
+        kern, (b_ms, b_by) = sp["kern"], sp["bound"]
         ms, call_ms = graph_ms(kern, 500), cuda_ms(kern, 500)
-        plain_ms = cuda_ms(plain, 20)
+        plain_ms = cuda_ms(sp["plain"], 20)
         avgs, _ = profile(kern, 50)
         k_us = sum(device_us(e) for e in avgs
-                   if is_cuda(e) and "qlstm_stack_kernel" in e.key) / 50
+                   if is_cuda(e) and sp["symbol"] in e.key) / 50
+        lib_ms = None
+        if "library" in sp:
+            lib_ms = cuda_ms(sp["library"], 200)
+            lib_avgs, _ = profile(sp["library"], 5)
+            log(f"phase 5: {sp['name']}: the library call ran "
+                f"{sorted({e.key for e in lib_avgs if is_cuda(e)})}")
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/qlstm_cell.cu",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "counter": counter, "call_ms": call_ms,
+            "name": sp["name"], "route": "cuda", "source": sp["source"],
+            "replaces": sp["replaces"], "launches": launches[sp["counter"]],
+            "max_abs_err": sp["err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "counter": sp["counter"], "call_ms": call_ms,
             "kernel_ms": k_us / 1e3 if k_us else None})
-        log(f"phase 5: {name}: {ms:.6f} ms device (eager call {call_ms:.6f} ms, "
-            f"kernel alone {k_us / 1e3:.6f} ms, plain {plain_ms:.6f} ms, bound "
+        log(f"phase 5: {sp['name']}: {ms:.6f} ms device (eager call {call_ms:.6f} ms, "
+            f"kernel alone {k_us / 1e3:.6f} ms, plain {plain_ms:.6f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
             f"{b_ms:.6f} ms by {b_by}) on {card}")
+    for method in ("arithmetic", "1to1"):
+        m_ms = graph_ms(lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method=method), 500)
+        log(f"phase 5: hard_sigmoid_star ({method}): {m_ms:.6f} ms device on {card}")
 
     slot_fn = session.compiled_stateful_slots()
     xw = xs[:64, 0]

@@ -38,10 +38,10 @@ def run_layered(layer_fn: Callable, qparams, x_int: Tensor,
     """Stack ``layer_fn`` over the layers and apply the dense head.
     x_int: (B, T, M) codes -> (B, P) codes.
 
-    The per-layer path, kept for parity with the reference, whose
-    ``kernels/ops.py`` reaches the engines' ``layer`` entries through it
-    (ops is not ported yet).  ``infer`` and the serving tier never take
-    it: they run the whole stack in one call."""
+    The per-layer path, kept for parity with the reference.  ``infer``
+    and the serving tier never take it: they run the whole stack in one
+    call; ``kernels/ops.qlstm_seq`` calls the engines' ``layer`` entries
+    directly."""
     h_t = x_int.transpose(0, 1).to(torch.int32)     # time-major (T, B, M)
     for p in qparams["layers"]:
         h_t = layer_fn(h_t, p["w_x"], p["w_h"], p["b"], model,

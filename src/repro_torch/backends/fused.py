@@ -51,10 +51,9 @@ def layer(x_int: Tensor, w_x: Tensor, w_h: Tensor, b_wide: Tensor,
           model: QLSTMConfig, accel: AcceleratorConfig) -> Tensor:
     """One fused LSTM layer, time-major: (T, B, M) codes -> (T, B, H).
 
-    The ``qlstm_seq`` entry, reached only through
-    ``common.run_layered`` (kept for parity with the reference); the
-    session's ``infer`` and the serving tier run ``run``/``run_stateful``/
-    ``run_stateful_slots`` instead."""
+    The ``qlstm_seq`` entry, reached through ``kernels/ops.qlstm_seq``
+    (and ``common.run_layered``); the session's ``infer`` and the serving
+    tier run ``run``/``run_stateful``/``run_stateful_slots`` instead."""
     sd = model.fxp.storage_dtype
     out = qlstm_cell.qlstm_seq(x_int.to(sd), w_x.to(sd), w_h.to(sd), b_wide,
                                **_kernel_args(model, accel))

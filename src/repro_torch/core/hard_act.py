@@ -150,6 +150,14 @@ def one_to_one_table(spec: HardSigmoidStarSpec) -> np.ndarray:
     return _full_table_np(spec)
 
 
+@functools.lru_cache(maxsize=None)
+def one_to_one_table_tensor(spec: HardSigmoidStarSpec,
+                            device: torch.device) -> Tensor:
+    """:func:`one_to_one_table` as an int32 tensor on ``device``, copied
+    there once per (spec, device) — 2**b entries (65,536 at (8,16))."""
+    return torch.as_tensor(_full_table_np(spec), device=device)
+
+
 def num_1to1_entries(spec: HardSigmoidStarSpec) -> int:
     """Non-trivial LUT entries (the linear region); 96 for (4,8)."""
     return 2 * spec.bound_int
@@ -172,6 +180,15 @@ def step_table(spec: HardSigmoidStarSpec) -> Tuple[np.ndarray, np.ndarray]:
     return thresholds.copy(), outputs.copy()
 
 
+@functools.lru_cache(maxsize=None)
+def step_table_tensors(spec: HardSigmoidStarSpec,
+                       device: torch.device) -> Tuple[Tensor, Tensor]:
+    """:func:`step_table` as int32 tensors on ``device``, copied there
+    once per (spec, device)."""
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in _step_table_np(spec))
+
+
 def num_step_entries(spec: HardSigmoidStarSpec) -> int:
     _, outputs = step_table(spec)
     return len(outputs)
@@ -182,17 +199,16 @@ def _take(table: np.ndarray, idx: Tensor) -> Tensor:
 
 
 def hs_star_int_1to1(x_int: Tensor, spec: HardSigmoidStarSpec) -> Tensor:
-    return _take(one_to_one_table(spec),
-                 x_int.to(torch.int32) - spec.cfg.int_min)
+    table = one_to_one_table_tensor(spec, x_int.device)
+    return table[x_int.to(torch.int64) - spec.cfg.int_min]
 
 
 def hs_star_int_step(x_int: Tensor, spec: HardSigmoidStarSpec) -> Tensor:
-    thresholds, outputs = step_table(spec)
+    thr, outputs = step_table_tensors(spec, x_int.device)
     x = x_int.to(torch.int32)
-    thr = torch.as_tensor(thresholds, device=x.device)
     # sum of comparators == the FPGA's cascaded-comparator mux.
     idx = (x.unsqueeze(-1) >= thr).sum(dim=-1)
-    return _take(outputs, idx)
+    return outputs[idx]
 
 
 def hs_star_int_step_unrolled(x_int: Tensor,

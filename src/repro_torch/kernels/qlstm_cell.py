@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
@@ -76,14 +76,6 @@ def load_library() -> ctypes.CDLL:
         raise RuntimeError("QlstmArgs layout differs between Python and "
                            "csrc/qlstm_cell.cu")
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _step_table_tensors(spec: hard_act.HardSigmoidStarSpec,
-                        device: torch.device) -> Tuple[Tensor, Tensor]:
-    thr, outs = hard_act.step_table(spec)
-    return (torch.as_tensor(thr, device=device),
-            torch.as_tensor(outs, device=device))
 
 
 def _default_rows_per_block(bsz: int, device: torch.device) -> int:
@@ -251,7 +243,7 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
     spec = hard_act.HardSigmoidStarSpec(cfg, hs_slope_shift, hs_bound)
     ht_lo, ht_hi = hard_act.hard_tanh_bounds(cfg, ht_min, ht_max)
     step = hs_method == "step"
-    thr, outs = _step_table_tensors(spec, dev) if step else (None, None)
+    thr, outs = hard_act.step_table_tensors(spec, dev) if step else (None, None)
     args = QlstmArgs(
         x=_ptr(x), w=_ptr(w), bias=_ptr(bias), out=_ptr(out),
         step_thr=_ptr(thr), step_out=_ptr(outs),

@@ -44,10 +44,20 @@ def test_port_imports_with_jax_and_reference_blocked():
             "sys.modules['repro'] = None\n"
             "import repro_torch, repro_torch.api, repro_torch.serving\n"
             "import repro_torch.convert, repro_torch.kernels.qlstm_cell\n"
+            "import repro_torch.kernels.quant_matmul\n"
+            "import repro_torch.kernels.hard_act\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import torch\n"
+            "from repro_torch.core.fixed_point import FXP_4_8\n"
+            "from repro_torch.kernels import ops\n"
             "s = repro_torch.build(device='cpu').quantize()\n"
-            "print(tuple(s.infer([[[0.5]] * 6], path='int').shape))\n")
+            "print(tuple(s.infer([[[0.5]] * 6], path='int').shape))\n"
+            "x = torch.ones(3, 4, dtype=torch.int8)\n"
+            "y = ops.quant_matmul_requant(x, x.T.contiguous(), FXP_4_8)\n"
+            "print(ops.hard_sigmoid_star_int(y, FXP_4_8, 'step').tolist())\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "(1, 1)"
+    assert proc.stdout.splitlines() == [
+        "(1, 1)", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]"]
