@@ -9,10 +9,15 @@ It builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all started together) and drives the port's two paths: the
 paper's integer LSTM — ``build`` -> ``quantize`` -> ``infer(path="int")``
 and a stateful ``StreamServer`` — at the full width of the paper's model
-(``QLSTMConfig()``: M=1, H=20, L=1, T=6, (4,8) codes), and the
+(``QLSTMConfig()``: M=1, H=20, L=1, T=6, (4,8) codes), the
 ``kernels.ops`` entry point at the published widths of qwen1.5-0.5B
 (``configs/qwen15_05b.py``: d_model 1024, d_ff 2816, 16 heads of 64, a
-2048-token prefill), in phases:
+2048-token prefill), and RecurrentGemma-2B's prefill and decode
+(``repro_torch.models``, ``repro_torch.launch.serve``) at its published
+widths, nothing cut (``configs/recurrentgemma_2b.py``: 26 layers, d_model
+and lru_width 2560, 10 heads of 256 on 1 KV head, window 2048, d_ff 7680,
+vocab 256,000; bf16 activations over f32 master params, random init from
+a ``torch.Generator`` seeded 0), in phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -25,7 +30,11 @@ and a stateful ``StreamServer`` — at the full width of the paper's model
      over every code of (4,8)/(6,8)/(8,10)/(8,16) (tolerance 0); flash
      attention on the reference's five shape cases, hd 128 and 256, rows
      with no key in their window, GQA through ``mha_flash`` (2e-5 abs/rel
-     in f32) and bf16 (1e-2);
+     in f32) and bf16 (1e-2); the RG-LRU scan (K7) on the reference's
+     three shapes, a zero-decay running sum, a 4096-step long-memory
+     chain, bf16 (one bf16 ulp), strided (B, T, W) views, and the
+     full-width (4096, 2, 2560) inputs of the model's layer 0 (1e-5
+     relative + 1e-6 absolute in f32);
   3. ``infer`` on 256 windows through the fused kernel, equal to the
      ``ref`` engine, with every kernel's launch count read;
   4. a ``StreamServer`` (batch 64, device-resident state) serving 128
@@ -40,7 +49,17 @@ and a stateful ``StreamServer`` — at the full width of the paper's model
      (attention within 2e-5), each kernel launched, K2 exactly once;
   5. CUDA-event timings of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call, at the shapes
-     of phases 3, 4 and 4b, and the server's per-wave latency.
+     of phases 3, 4, 4b and 6, the server's per-wave latency, the
+     RecurrentGemma-2B prefill's wall time and device idle share, and its
+     decode tokens/s;
+  6. RecurrentGemma-2B: ``forward_prefill`` at B=2, T=4096 (twice the
+     window) with finite last-token logits and K7 launched exactly 18
+     times (one per rec layer); ``serve.main`` at ``--preset full``
+     (batch 4, 16 prompt + 16 generated tokens, a 2048-slot KV ring); and
+     a 32-token prompt decoded step by step at B=2 whose last logits equal
+     the prefill's within 0.3 (the reference's bound) with f32
+     activations, and in bf16 within the distance between the bf16 and
+     the f32 prefill.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -70,6 +89,8 @@ FP32_OPS_PER_S = 67e12
 
 # qwen1.5-0.5B (configs/qwen15_05b.py) at a 2048-token prefill.
 PREFILL, D_MODEL, D_FF, HEADS, HEAD_DIM = 2048, 1024, 2816, 16, 64
+# RecurrentGemma-2B: a prefill of twice its 2048 window, decode steps timed.
+LM_BATCH, LM_PREFILL, LM_DECODE = 2, 4096, 16
 HS_METHODS = ("arithmetic", "step", "1to1")
 
 
@@ -156,14 +177,16 @@ def max_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
-def close_err(got, want, tol):
-    """max |got - want| after checking |got - want| <= tol + tol * |want|."""
+def close_err(got, want, tol, rtol=None, what="attention"):
+    """max |got - want| after checking |got - want| <= tol + rtol * |want|
+    (rtol defaults to tol)."""
+    rtol = tol if rtol is None else rtol
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    check(bool(torch.isfinite(got).all()), "non-finite attention output")
-    check(bool((diff <= tol + tol * want.abs()).all()),
-          f"attention differs from its plain version by {float(diff.max())}"
-          f" (tolerance {tol})")
+    check(bool(torch.isfinite(got).all()), f"non-finite {what} output")
+    check(bool((diff <= tol + rtol * want.abs()).all()),
+          f"{what} differs from its plain version by {float(diff.max())}"
+          f" (tolerance {tol} + {rtol} relative)")
     return float(diff.max())
 
 
@@ -374,7 +397,8 @@ def phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig, dev, mods):
     torch.cuda.synchronize()
     launches = read_counts(mods)
     want = {"int32": 1, "requant": 1, "hard_sigmoid_star": 3, "hard_tanh": 1,
-            "flash_attention": 1, "multilayer": 0, "seq": 1, "slot": 0}
+            "flash_attention": 1, "multilayer": 0, "seq": 1, "slot": 0,
+            "rglru_seq": 0}
     check(launches == want, f"the ops path launched {launches}")
 
     errs = {"quant_matmul_int32": max_err(acc, qm.quant_matmul_plain(x, w)),
@@ -405,6 +429,122 @@ def phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig, dev, mods):
                 unsaturated=inside), launches, errs
 
 
+def layer0_scan_inputs(T, L, RG, params, cfg, tokens):
+    """K7's inputs in the model's layer 0 (a rec layer) during the
+    prefill of ``tokens``: (T, B, W) views of (B, T, W) f32 tensors."""
+    from repro_torch.models.modules import tree_index
+    p0 = tree_index(params["groups"][0], 0)
+    x = L.norm_apply(p0["ln1"], T._embed(params, {"tokens": tokens}, cfg), cfg)
+    cx = RG._causal_conv(p0["mixer"], L.linear(x, p0["mixer"]["w_x"], cfg.quant),
+                         cfg)
+    log_a, mult, i = RG._decay(p0["mixer"], cx, cfg)
+    return log_a.transpose(0, 1), (mult * (i * cx)).transpose(0, 1)
+
+
+def phase2_rglru(rg, full_inputs, dev):
+    """K7 against its plain version on the card; returns (max |err| in
+    f32, max |err| in bf16, case count).  Raises past 1e-5 relative +
+    1e-6 absolute in f32 or one bf16 ulp in bf16 (the kernel rounds the
+    multiply and the add one at a time, as torch does; the margin is for
+    exp's last bit)."""
+    rng = np.random.default_rng(5)
+
+    def inputs(t, b, w, scale=1.0, zero_decay=False):
+        la = -np.abs(rng.normal(0, scale, (t, b, w)))
+        if zero_decay:
+            la[:] = 0.0
+        return (torch.as_tensor(la, dtype=torch.float32, device=dev),
+                torch.as_tensor(rng.normal(0, 1, (t, b, w)), dtype=torch.float32,
+                                device=dev))
+
+    cases = [inputs(5, 3, 8), inputs(16, 7, 32), inputs(9, 128, 16),  # the reference's
+             inputs(33, 3, 70, zero_decay=True),                       # running sum
+             inputs(4096, 2, 64, scale=0.01),                          # long memory
+             full_inputs]
+    err = err16 = 0.0
+    n = 0
+    for la, b in cases:
+        got = rg.rglru_seq(la, b)
+        torch.cuda.synchronize()
+        err = max(err, close_err(got, rg.rglru_seq_plain(la, b), 1e-6, 1e-5, "K7"))
+        n += 1
+        if la.shape[0] <= 64:
+            la16, b16 = la.bfloat16(), b.bfloat16()
+            got = rg.rglru_seq(la16, b16)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16, f"bf16 K7 returned {got.dtype}")
+            err16 = max(err16, close_err(got, rg.rglru_seq_plain(la16, b16), 1e-6,
+                                         2 ** -7, "K7 bf16"))
+            # the same data as (T, B, W) views of (B, T, W) tensors
+            la_v, b_v = (t.transpose(0, 1).contiguous().transpose(0, 1)
+                         for t in (la, b))
+            got_v = rg.rglru_seq(la_v, b_v)
+            torch.cuda.synchronize()
+            check(got_v.transpose(0, 1).is_contiguous(), "K7 output layout")
+            err = max(err, close_err(got_v, rg.rglru_seq_plain(la, b), 1e-6, 1e-5,
+                                     "K7 strided"))
+            n += 2
+    check(not full_inputs[0].is_contiguous(), "layer-0 inputs are not views")
+    return err, err16, n
+
+
+def phase_lm(T, serve, mods, params, cfg, tokens, dev):
+    """RecurrentGemma-2B's prefill, the serving entry and prefill against
+    step-by-step decode.  Returns the launch counts of the prefill."""
+    reset_counts(mods)
+    logits = T.forward_prefill(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    n_rec = sum(k == "rec" for k in cfg.layer_kinds())
+    check(launches == {**{k: 0 for k in launches}, "rglru_seq": n_rec},
+          f"the prefill launched {launches}, not K7 {n_rec} times")
+    check(tuple(logits.shape) == (tokens.shape[0], 1, cfg.vocab_size) and
+          bool(torch.isfinite(logits).all()), f"prefill logits {logits.shape}")
+    log(f"phase 6: forward_prefill {tuple(tokens.shape)} -> {tuple(logits.shape)} "
+        f"finite; launches {launches}")
+
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    gen = serve.main(["--arch", "recurrentgemma-2b", "--preset", "full",
+                      "--batch", "4", "--prompt-len", "16", "--gen", "16",
+                      "--max-seq", "4096"])
+    serve_s = time.perf_counter() - t0
+    serve_launches = read_counts(mods)
+    check(gen.shape == (4, 16) and ((0 <= gen) & (gen < cfg.vocab_size)).all(),
+          f"serve returned {gen.shape}")
+    check(not any(serve_launches.values()), f"decode launched {serve_launches}")
+    log(f"phase 6: serve.main --preset full -> {gen.shape} tokens in "
+        f"{serve_s:.3f} s (init included); launches {serve_launches}")
+
+    # Prefill against step-by-step decode, on the same weights in f32 and in
+    # bf16 activations.  The reference's bound (0.3) is set at its reduced
+    # config (d 64, vocab 128); at full width bf16 rounding alone moves the
+    # largest of the 2 x 256,000 last logits by more than that, so bf16 is
+    # held to the distance between its own prefill and the f32 one.
+    prompt = tokens[:, :32]
+
+    def last_logits(c):
+        pre = T.forward_prefill(params, {"tokens": prompt}, c)
+        cache = T.init_cache(c, prompt.shape[0], prompt.shape[1], device=dev)
+        for t in range(prompt.shape[1]):
+            step, cache = T.forward_decode(params, cache, {
+                "tokens": prompt[:, t:t + 1], "cache_pos": t}, c)
+        return pre[:, -1], step[:, 0]
+
+    pre16, dec16 = last_logits(cfg)
+    pre32, dec32 = last_logits(cfg.replace(dtype="float32"))
+    maxdiff = lambda a, b: float((a - b).abs().max())
+    err32, err16, floor = maxdiff(pre32, dec32), maxdiff(pre16, dec16), \
+        maxdiff(pre16, pre32)
+    check(err32 < 0.3, f"f32 prefill and decode differ by {err32} (bound 0.3)")
+    check(err16 <= floor, f"bf16 prefill and decode differ by {err16}, more "
+          f"than bf16 differs from f32 ({floor})")
+    log(f"phase 6: a 32-token prompt decoded step by step against the prefill's "
+        f"last logits: f32 max |err| {err32} (bound 0.3), bf16 {err16} (bound: "
+        f"bf16 prefill vs f32 prefill, {floor})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -419,8 +559,15 @@ def main() -> int:
     from repro_torch.kernels import hard_act as ha
     from repro_torch.kernels import qlstm_cell as qc
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import rglru as lm_rglru
+    from repro_torch.models import transformer as lm
+    from repro_torch.models.modules import count_params
     from repro_torch.serving import StreamServer
-    mods = (qc, qm, ha, fa)
+    mods = (qc, qm, ha, fa, rg)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -429,7 +576,8 @@ def main() -> int:
 
     # -- phase 1: card, versions, build ------------------------------------
     t0 = time.perf_counter()
-    names = ("qlstm_cell", "quant_matmul", "hard_act", "flash_attention")
+    names = ("qlstm_cell", "quant_matmul", "hard_act", "flash_attention",
+             "rglru_scan")
     with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
         for fut in [pool.submit(_build.load_library, nm) for nm in names]:
             fut.result()
@@ -457,6 +605,25 @@ def main() -> int:
     log(f"phase 2: {n2} cases, max |kernel - plain| = {errs2} (tolerance 0; "
         f"flash_attention 2e-5 abs/rel), bf16 attention {bf16_err} (1e-2) "
         f"in {time.perf_counter() - t0:.1f} s")
+    # RecurrentGemma-2B at its published widths: K7's full-width case takes
+    # the inputs of the model's layer 0; phase 6 drives the model.
+    t0 = time.perf_counter()
+    lm_cfg = ARCH_CONFIGS["recurrentgemma-2b"]
+    lm_params, _ = lm.init_model(lm_cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = count_params(lm_params)
+    lm_tokens = torch.as_tensor(np.random.default_rng(6).integers(
+        0, lm_cfg.vocab_size, (LM_BATCH, LM_PREFILL)), device=dev)
+    with torch.inference_mode():
+        k7_in = layer0_scan_inputs(lm, lm_layers, lm_rglru, lm_params, lm_cfg,
+                                   lm_tokens)
+    log(f"phase 2: RecurrentGemma-2B: {n_params} f32 parameters drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs["rglru_seq"], k7_bf16_err, n7 = phase2_rglru(rg, k7_in, dev)
+    log(f"phase 2: {n7} K7 cases incl. the full-width {tuple(k7_in[0].shape)} "
+        f"layer-0 inputs, max |kernel - plain| = {errs['rglru_seq']} (1e-6 + "
+        f"1e-5 relative), bf16 {k7_bf16_err} (one bf16 ulp) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the session at full width --------------------------------
     model = QLSTMConfig()
@@ -535,6 +702,12 @@ def main() -> int:
         f"equals the plain versions, max |err| {ops_errs}; launches "
         f"{ops_launches} in {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 6: RecurrentGemma-2B prefill, serve, prefill vs decode --------
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lm_launches = phase_lm(lm, serve, mods, lm_params, lm_cfg, lm_tokens, dev)
+    log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 5: timings ----------------------------------------------------
     acts, sd = session.model.acts, session.model.fxp.storage_dtype
     kw = dict(cfg=session.model.fxp, hs_method=session.accel.hs_method,
@@ -564,7 +737,7 @@ def main() -> int:
     k3_bytes = (x4.numel() + w_bytes + 2 * 64 * 4 + 2 * table.numel() * 4
                 + T * 64 * H)
     launches = {k: infer_launches[k] + serve_launches[k] + ops_launches[k]
-                for k in infer_launches}
+                + lm_launches[k] for k in infer_launches}
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
@@ -648,6 +821,17 @@ def main() -> int:
              library=lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
              bound=bound(4 * q2.numel() * 4, 4 * HEAD_DIM * kept_pairs,
                          FP32_OPS_PER_S)),
+        # K7 at the prefill's shape on layer 0's inputs: (T, B, W) views.  No
+        # single PyTorch call computes it: the cumprod/cumsum form underflows
+        # over 4096 steps.  Its plain version is 4096 small steps: 3 calls.
+        dict(name="rglru_seq", replaces="src/repro/kernels/rglru_scan.py:48",
+             source="src/repro_torch/csrc/rglru_scan.cu", symbol="rglru_seq_kernel",
+             counter="rglru_seq", err=errs["rglru_seq"], plain_iters=3,
+             kern=lambda: rg.rglru_seq(*k7_in),
+             plain=lambda: rg.rglru_seq_plain(*k7_in),
+             # one exp, one multiply, one add per element, on the CUDA cores
+             bound=bound(3 * 4 * k7_in[1].numel(), 3 * k7_in[1].numel(),
+                         FP32_OPS_PER_S)),
     ]
     is_cuda = lambda e: str(e.device_type).endswith("CUDA")
     kernels = []
@@ -657,7 +841,7 @@ def main() -> int:
         # alone, from the profiler.
         kern, (b_ms, b_by) = sp["kern"], sp["bound"]
         ms, call_ms = graph_ms(kern, 500), cuda_ms(kern, 500)
-        plain_ms = cuda_ms(sp["plain"], 20)
+        plain_ms = cuda_ms(sp["plain"], sp.get("plain_iters", 20))
         avgs, _ = profile(kern, 50)
         k_us = sum(device_us(e) for e in avgs
                    if is_cuda(e) and sp["symbol"] in e.key) / 50
@@ -709,6 +893,44 @@ def main() -> int:
         f"{warm['latency_ms']['p99']:.6f} ms, compute mean "
         f"{warm['compute_ms_mean']:.6f} ms, {warm['samples_per_s']:.3f} "
         f"samples/s on {card}")
+
+    with torch.inference_mode():
+        prefill = lambda: lm.forward_prefill(lm_params, {"tokens": lm_tokens}, lm_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            prefill()
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3 / 2
+        avgs, wall_ms = profile(prefill, 2)
+        busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 2 / 1e3
+        log(f"phase 5: RecurrentGemma-2B forward_prefill B={LM_BATCH} "
+            f"T={LM_PREFILL}: {pre_ms:.6f} ms wall ({LM_BATCH * LM_PREFILL / pre_ms * 1e3:.3f}"
+            f" tokens/s); under the profiler {wall_ms / 2:.6f} ms wall, "
+            f"{busy_ms:.6f} ms device busy, idle share "
+            f"{1 - busy_ms / (wall_ms / 2):.4f} on {card}")
+        log(avgs.table(sort_by="self_device_time_total", row_limit=12))
+        cache = lm.init_cache(lm_cfg, 4, 4096, device=dev)     # a 2048-slot ring
+        tok = lm_tokens[:, :2].reshape(4, 1)
+        for t in range(4):                                    # warm-up
+            logits, cache = lm.forward_decode(lm_params, cache, {
+                "tokens": tok, "cache_pos": t}, lm_cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(4, 4 + LM_DECODE):
+            logits, cache = lm.forward_decode(lm_params, cache, {
+                "tokens": tok, "cache_pos": t}, lm_cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
+        avgs, wall_ms = profile(lambda: lm.forward_decode(lm_params, cache, {
+            "tokens": tok, "cache_pos": 4 + LM_DECODE}, lm_cfg), 3)
+        busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 3 / 1e3
+        log(f"phase 5: RecurrentGemma-2B decode, batch 4, 2048-slot ring: "
+            f"{step_ms:.6f} ms per step, {4e3 / step_ms:.3f} tokens/s; one step "
+            f"{wall_ms / 3:.6f} ms wall under the profiler, {busy_ms:.6f} ms "
+            f"device busy, idle share {1 - busy_ms / (wall_ms / 3):.4f} on {card}")
 
     log(card)
     log(json.dumps({"kernels": kernels}))

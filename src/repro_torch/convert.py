@@ -7,13 +7,15 @@ arrays at the leaves (``jax.tree_util.tree_map(np.asarray,
 session.params)``) and hand them here.  Then
 ``repro_torch.build(model, accel, params=params_from_reference(tree))``
 and ``repro.build(model, accel, params=...)`` compute the same thing from
-the same numbers.  This module imports neither JAX nor the reference: it
+the same numbers.  For the LM side, :func:`lm_params_from_reference`
+does the same for the tree of ``repro.models.transformer.init_model``.
+This module imports neither JAX nor the reference: it
 only walks dicts and lists of array-likes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -41,3 +43,14 @@ def qparams_from_reference(tree: Any,
     """The reference's quantised integer codes -> the port's int32 codes
     dict on ``device``."""
     return _convert(tree, torch.int32, device)
+
+
+def lm_params_from_reference(tree: Any,
+                             device: Union[str, torch.device, None] = None,
+                             dtype: Optional[torch.dtype] = torch.float32):
+    """The reference LM's params (``init_model(cfg, key)[0]`` with numpy
+    arrays at the leaves: dicts, and lists for ``groups``/``tail``, in the
+    stacked layout) -> the port's tree for
+    ``repro_torch.models.transformer``, leaf for leaf, as ``dtype`` on
+    ``device`` (default: the CPU)."""
+    return _convert(tree, dtype, device)

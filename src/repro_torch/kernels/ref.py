@@ -12,6 +12,7 @@
     three methods) and HardTanh.
   * ``attention_ref`` — fp32 softmax attention with causal, window and
     padded-kv masks.
+  * ``rglru_seq_ref`` — the RG-LRU's linear recurrence, sequential, fp32.
 """
 
 from __future__ import annotations
@@ -172,3 +173,20 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     sc = torch.where(mask[None], sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
     return torch.einsum("bqs,bsh->bqh", p, v.to(torch.float32)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rglru_scan kernel oracle
+# ---------------------------------------------------------------------------
+
+def rglru_seq_ref(log_a: Tensor, b: Tensor) -> Tensor:
+    """h_t = exp(log_a_t) * h_{t-1} + b_t, h_{-1} = 0, over (T, B, W),
+    carried in fp32; the result is in b's dtype."""
+    h = torch.zeros(b.shape[1:], dtype=torch.float32, device=b.device)
+    hs = []
+    for t in range(b.shape[0]):
+        h = torch.exp(log_a[t].float()) * h + b[t].float()
+        hs.append(h)
+    if not hs:
+        return torch.empty_like(b)
+    return torch.stack(hs).to(b.dtype)

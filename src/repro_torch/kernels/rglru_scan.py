@@ -1,0 +1,114 @@
+"""The RG-LRU's linear recurrence — the Hopper counterpart of
+``repro/kernels/rglru_scan.py``.
+
+:func:`rglru_seq` takes ``log_a`` and ``b``, each (T, B, W), f32 or bf16,
+and returns h (T, B, W) in b's dtype with ``h_t = exp(log_a_t) * h_{t-1}
++ b_t`` from a zero state, carried in fp32.  It takes the hand-written
+CUDA kernel of ``csrc/rglru_scan.cu`` for CUDA tensors — there is no
+fallback: if the kernel cannot be built or launched, the call raises —
+and its plain torch version :func:`rglru_seq_plain` (``ref.rglru_seq_ref``)
+only for tensors on the CPU.  The kernel reads and writes through the
+tensors' strides (w's must be 1), so transposed views go in without a
+copy; the result has b's memory layout.  ``batch_block`` is accepted for
+the reference's signature; the kernel tiles its own way.
+
+:data:`LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+Tensor = torch.Tensor
+
+LAUNCHES = {"rglru_seq": 0}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class RglruArgs(ctypes.Structure):
+    """Mirror of ``struct RglruArgs`` in ``csrc/rglru_scan.cu``."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("log_a", "b", "h")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "T", "B", "W", "a_st", "a_sb", "b_st", "b_sb", "h_st",
+                    "h_sb")])
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and bind ``csrc/rglru_scan.cu``.  Raises when
+    ``nvcc`` is missing or the build fails."""
+    lib = _build.load_library("rglru_scan")
+    lib.rglru_launch.argtypes = [ctypes.POINTER(RglruArgs), ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_void_p]
+    lib.rglru_launch.restype = ctypes.c_int
+    lib.rglru_args_size.restype = ctypes.c_int
+    lib.rglru_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_error_string.restype = ctypes.c_char_p
+    if lib.rglru_args_size() != ctypes.sizeof(RglruArgs):
+        raise RuntimeError("RglruArgs layout differs between Python and "
+                           "csrc/rglru_scan.cu")
+    return lib
+
+
+def _check(log_a: Tensor, b: Tensor):
+    if b.ndim != 3 or tuple(log_a.shape) != tuple(b.shape):
+        raise ValueError(f"expected log_a and b of one (T, B, W) shape, got "
+                         f"{tuple(log_a.shape)} and {tuple(b.shape)}")
+
+
+def rglru_seq_plain(log_a: Tensor, b: Tensor, *,
+                    batch_block: int = 128) -> Tensor:
+    """Plain torch version of :func:`rglru_seq`: the sequential fp32
+    recurrence of ``ref.rglru_seq_ref``."""
+    _check(log_a, b)
+    return ref.rglru_seq_ref(log_a, b)
+
+
+def rglru_seq(log_a: Tensor, b: Tensor, *, batch_block: int = 128) -> Tensor:
+    """log_a, b: (T, B, W) -> h: (T, B, W) in b's dtype, h_0 = b_0."""
+    _check(log_a, b)
+    if log_a.device.type == "cpu" and b.device.type == "cpu":
+        return rglru_seq_plain(log_a, b)
+    if b.device.type != "cuda" or log_a.device != b.device:
+        raise ValueError(f"the CUDA kernel takes CUDA tensors on one device, "
+                         f"got {log_a.device}, {b.device}")
+    if log_a.dtype not in _DTYPES or b.dtype not in _DTYPES:
+        raise ValueError(f"log_a and b must be float32 or bfloat16, got "
+                         f"{log_a.dtype}, {b.dtype}")
+    return _launch(log_a, b)
+
+
+def _launch(log_a: Tensor, b: Tensor) -> Tensor:
+    """Launch the kernel on the current stream for validated operands on
+    one device; returns h in b's dtype and memory layout."""
+    if log_a.stride(2) != 1:
+        log_a = log_a.contiguous()
+    if b.stride(2) != 1:
+        b = b.contiguous()
+    out = torch.empty_like(b)      # keeps b's strides when b is dense
+    if out.numel() == 0:
+        return out
+    t, bsz, w = b.shape
+    lib = load_library()
+    args = RglruArgs(log_a=log_a.data_ptr(), b=b.data_ptr(),
+                     h=out.data_ptr(), T=t, B=bsz, W=w,
+                     a_st=log_a.stride(0), a_sb=log_a.stride(1),
+                     b_st=b.stride(0), b_sb=b.stride(1),
+                     h_st=out.stride(0), h_sb=out.stride(1))
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    rc = lib.rglru_launch(ctypes.byref(args),
+                          int(log_a.dtype == torch.bfloat16),
+                          int(b.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_seq kernel launch failed: "
+                           f"{lib.rglru_error_string(rc).decode()}")
+    LAUNCHES["rglru_seq"] += 1
+    return out

@@ -1,0 +1,309 @@
+"""Transformer substrate — counterpart of ``repro/models/layers.py``:
+norms, RoPE, GQA attention (windowed / softcapped / chunked online
+softmax) and GLU MLPs, hard-activation-capable (C2).
+
+Attention is the reference's chunked online softmax in plain torch (a
+loop over q chunks, each scanning its kv blocks), with the same static
+causal-triangle and sliding-window block skipping for prefill, so a long
+prefill never materialises a (T, S) score matrix.  It is not a kernel:
+the reference's model path computes it in ``jnp`` too, and its flash
+kernel (``kernels/flash_attention.py``) is not on that path.
+
+The quantised weight paths (``{"q","s"}`` serve weights, fake-quant
+matmuls) and the int8 KV cache are not ported yet: ``linear`` and
+``attn_apply`` raise where a config asks for them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.hard_act import HARD_VARIANT, get_float_act
+from repro_torch.core.quant import QuantConfig
+from repro_torch.models.modules import Boxed, param
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def act_fn(name: str, cfg: ModelConfig):
+    """Resolve an activation, honouring the hard_acts flag (C2)."""
+    if cfg.hard_acts:
+        name = HARD_VARIANT.get(name, name)
+    return get_float_act(name)
+
+
+# ---------------------------------------------------------------------------
+# Linear (float path)
+# ---------------------------------------------------------------------------
+
+def linear(x: Tensor, w, quant: QuantConfig, mode: str = "train") -> Tensor:
+    """x @ w, contracting x's last dim with w's first; w's extra trailing
+    dims (e.g. (d, H, hd)) are flattened and restored.  The weight is cast
+    to x's dtype, as in the reference."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "quantised serve weights ({'q', 's'}) are not ported yet "
+            "(ROADMAP.md: quantize_model_params, w8/w8a8)")
+    if mode == "train" and quant.enabled:
+        raise NotImplementedError(
+            "fake-quant (QAT) matmuls are not ported yet (ROADMAP.md)")
+    shp = w.shape
+    y = x @ w.reshape(shp[0], -1).to(x.dtype)
+    return y.reshape(x.shape[:-1] + shp[1:])
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(gen: torch.Generator, cfg: ModelConfig,
+              stack: Tuple[int, ...] = ()) -> Boxed:
+    axes = ("layers",) * len(stack) + (None,)
+    init = "zeros" if cfg.norm == "gemma_rmsnorm" else "ones"
+    return param(gen, stack + (cfg.d_model,), axes, init=init)
+
+
+def norm_apply(w: Tensor, x: Tensor, cfg: ModelConfig,
+               eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps) * w
+    else:
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        y = y * (1.0 + w) if cfg.norm == "gemma_rmsnorm" else y * w
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: Tensor, dim: int,
+                 theta: float) -> Tuple[Tensor, Tensor]:
+    """positions (...,) -> cos/sin (..., dim/2), in float32."""
+    freq = theta ** (-torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=positions.device) / dim)
+    ang = positions.float()[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float,
+               mrope_sections: Optional[Tuple[int, ...]] = None) -> Tensor:
+    """x: (B, T, H, hd); positions: (B, T).  Rotates the two halves of hd."""
+    if mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
+                                  "(ROADMAP.md)")
+    cos, sin = _rope_angles(positions, x.shape[-1], theta)   # (B, T, hd/2)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig,
+              stack: Tuple[int, ...] = ()) -> Dict[str, Boxed]:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    la = ("layers",) * len(stack)
+    p = {
+        "wq": param(gen, stack + (d, h, hd), la + ("embed", "heads", "head_dim"),
+                    scale=d ** -0.5),
+        "wk": param(gen, stack + (d, kv, hd), la + ("embed", "kv_heads", "head_dim"),
+                    scale=d ** -0.5),
+        "wv": param(gen, stack + (d, kv, hd), la + ("embed", "kv_heads", "head_dim"),
+                    scale=d ** -0.5),
+        "wo": param(gen, stack + (h * hd, d), la + ("heads", "embed"),
+                    scale=(h * hd) ** -0.5),
+    }
+    if cfg.attn and cfg.attn.qkv_bias:
+        p["bq"] = param(gen, stack + (h, hd), la + ("heads", "head_dim"), init="zeros")
+        p["bk"] = param(gen, stack + (kv, hd), la + ("kv_heads", "head_dim"), init="zeros")
+        p["bv"] = param(gen, stack + (kv, hd), la + ("kv_heads", "head_dim"), init="zeros")
+    return p
+
+
+def _softcap(scores: Tensor, cap: Optional[float], hard: bool) -> Tensor:
+    if cap is None:
+        return scores
+    if hard:
+        return torch.clamp(scores, -cap, cap)
+    return cap * torch.tanh(scores / cap)
+
+
+def _attn_q_chunk(qb: Tensor, qi: int, j_lo: int, kg: Tensor, vg: Tensor, *,
+                  qc: int, kc: int, scale: float, softcap, hard_softcap: bool,
+                  causal: bool, window: Optional[int], s_valid: int,
+                  q_offset: int) -> Tensor:
+    """Online-softmax attention of ONE q chunk against kv blocks
+    [j_lo, j_lo + kg.shape[1]).  qb: (B, qc, KV, g, hd); kg/vg:
+    (B, nj, kc, KV, hd).  Returns (B, qc, KV, g, hd) in fp32."""
+    b, _, kvh, g, hd = qb.shape
+    dev = qb.device
+    qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
+    qf = qb.float()
+    m = torch.full((b, kvh, g, qc), -math.inf, device=dev)
+    l = torch.zeros((b, kvh, g, qc), device=dev)
+    acc = torch.zeros((b, kvh, g, qc, hd), device=dev)
+    for jj in range(kg.shape[1]):
+        kpos = (j_lo + jj) * kc + torch.arange(kc, device=dev)
+        sc = torch.einsum("bqkgh,bskh->bkgqs", qf, kg[:, jj].float()) * scale
+        sc = _softcap(sc, softcap, hard_softcap)
+        mask = kpos[None, :] < s_valid
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+        sc = torch.where(mask, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p, vg[:, jj].float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None, hard_softcap: bool = False,
+                    scale: float = 1.0, q_offset: int = 0,
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    kv_valid_len: Optional[int] = None) -> Tensor:
+    """Chunked online-softmax attention.
+
+    q: (B, T, H, hd); k, v: (B, S, KV, hd); GQA via head grouping.  Key s
+    is kept for query t when ``s < kv_valid_len``, ``s <= t`` (causal,
+    positions offset by ``q_offset``) and ``t - s < window``.  Returns
+    (B, T, H, hd) in q's dtype, accumulated in fp32."""
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qc = min(q_chunk, t)
+    kc = min(kv_chunk, s)
+    tp, sp = -t % qc, -s % kc
+    if tp:
+        q = F.pad(q, (0, 0, 0, 0, 0, tp))
+    if sp:
+        k = F.pad(k, (0, 0, 0, 0, 0, sp))
+        v = F.pad(v, (0, 0, 0, 0, 0, sp))
+    nq, nk = (t + tp) // qc, (s + sp) // kc
+    qg = q.reshape(b, nq, qc, kvh, g, hd)
+    kg = k.reshape(b, nk, kc, kvh, hd)
+    vg = v.reshape(b, nk, kc, kvh, hd)
+    kw = dict(qc=qc, kc=kc, scale=scale, softcap=softcap,
+              hard_softcap=hard_softcap, window=window,
+              s_valid=s if kv_valid_len is None else kv_valid_len)
+
+    # Causal-triangle path (prefill: t == s, no offset): per-q-chunk static
+    # kv bounds skip the strictly-future blocks, and a sliding window also
+    # skips the wholly expired past ones.
+    if (causal and t == s and tp == 0 and sp == 0 and q_offset == 0
+            and kv_valid_len is None):
+        outs = []
+        for qi in range(nq):
+            j_hi = ((qi + 1) * qc + kc - 1) // kc
+            j_lo = 0 if window is None else max(0, (qi * qc - window + 1) // kc)
+            outs.append(_attn_q_chunk(qg[:, qi], qi, j_lo, kg[:, j_lo:j_hi],
+                                      vg[:, j_lo:j_hi], causal=True,
+                                      q_offset=0, **kw))
+        return torch.stack(outs, 1).reshape(b, t, h, hd).to(q.dtype)
+
+    outs = [_attn_q_chunk(qg[:, qi], qi, 0, kg, vg, causal=causal,
+                          q_offset=q_offset, **kw) for qi in range(nq)]
+    out = torch.stack(outs, 1).reshape(b, t + tp, h, hd)
+    return out[:, :t].to(q.dtype)
+
+
+def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
+               cfg: ModelConfig, window: Optional[int] = None,
+               mode: str = "train", cache: Optional[Dict[str, Tensor]] = None,
+               cache_pos: Optional[int] = None,
+               ring_window: Optional[int] = None):
+    """GQA attention block body.
+
+    train/prefill: full-sequence causal (chunked), returns y.  decode: x is
+    (B, 1, d); the cache {"k", "v"}, each (B, Smax, KV, hd), is written at
+    ``cache_pos`` (``cache_pos % ring_window`` for a ring-buffer cache) into
+    a new tensor; returns (y, new_cache)."""
+    a = cfg.attn
+    scale = (a.query_scale or cfg.head_dim ** -0.5) if a else cfg.head_dim ** -0.5
+    q = linear(x, p["wq"], cfg.quant, mode)
+    k = linear(x, p["wk"], cfg.quant, mode)
+    v = linear(x, p["wv"], cfg.quant, mode)
+    if a and a.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    if not (a and a.sinusoidal):
+        q = apply_rope(q, positions, a.rope_theta, a.mrope_sections)
+        k = apply_rope(k, positions, a.rope_theta, a.mrope_sections)
+    softcap = a.attn_softcap if a else None
+
+    if mode == "decode":
+        if cache["k"].dtype == torch.int8:
+            raise NotImplementedError("the int8 KV cache is not ported yet "
+                                      "(ROADMAP.md)")
+        st = dict(cache)
+        slot = cache_pos % ring_window if ring_window else cache_pos
+        idx = torch.tensor([slot], device=x.device)
+        st["k"] = st["k"].index_copy(1, idx, k.to(st["k"].dtype))
+        st["v"] = st["v"].index_copy(1, idx, v.to(st["v"].dtype))
+        s_cache = st["k"].shape[1]
+        out = flash_attention(
+            q, st["k"], st["v"], causal=False,
+            window=None if ring_window else window, softcap=softcap,
+            hard_softcap=cfg.hard_acts, scale=scale, q_offset=cache_pos,
+            kv_valid_len=min(cache_pos + 1, s_cache), q_chunk=1,
+            kv_chunk=min(4096, s_cache))
+        y = linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
+        return y, st
+
+    out = flash_attention(q, k, v, causal=True, window=window,
+                          softcap=softcap, hard_softcap=cfg.hard_acts,
+                          scale=scale)
+    return linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             stack: Tuple[int, ...] = ()) -> Dict[str, Boxed]:
+    d, f = cfg.d_model, cfg.d_ff
+    la = ("layers",) * len(stack)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "w_gate": param(gen, stack + (d, f), la + ("embed", "mlp")),
+            "w_up": param(gen, stack + (d, f), la + ("embed", "mlp")),
+            "w_down": param(gen, stack + (f, d), la + ("mlp", "embed")),
+        }
+    return {
+        "w_up": param(gen, stack + (d, f), la + ("embed", "mlp")),
+        "w_down": param(gen, stack + (f, d), la + ("mlp", "embed")),
+    }
+
+
+def mlp_apply(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
+              mode: str = "train") -> Tensor:
+    f = act_fn(cfg.act, cfg)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        h = f(linear(x, p["w_gate"], cfg.quant, mode)) * \
+            linear(x, p["w_up"], cfg.quant, mode)
+    else:
+        h = f(linear(x, p["w_up"], cfg.quant, mode))
+    return linear(h, p["w_down"], cfg.quant, mode)

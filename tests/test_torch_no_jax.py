@@ -54,10 +54,17 @@ def test_port_imports_with_jax_and_reference_blocked():
             "print(tuple(s.infer([[[0.5]] * 6], path='int').shape))\n"
             "x = torch.ones(3, 4, dtype=torch.int8)\n"
             "y = ops.quant_matmul_requant(x, x.T.contiguous(), FXP_4_8)\n"
-            "print(ops.hard_sigmoid_star_int(y, FXP_4_8, 'step').tolist())\n")
+            "print(ops.hard_sigmoid_star_int(y, FXP_4_8, 'step').tolist())\n"
+            "import repro_torch.models.transformer as T\n"
+            "import repro_torch.launch.serve, repro_torch.kernels.rglru_scan\n"
+            "from repro_torch.configs import ARCH_CONFIGS, reduce_config\n"
+            "cfg = reduce_config(ARCH_CONFIGS['recurrentgemma-2b'])\n"
+            "p, _ = T.init_model(cfg, torch.Generator().manual_seed(0))\n"
+            "lg = T.forward_prefill(p, {'tokens': torch.ones(2, 12, dtype=torch.long)}, cfg)\n"
+            "print(tuple(lg.shape), bool(torch.isfinite(lg).all()))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines() == [
-        "(1, 1)", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]"]
+        "(1, 1)", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]", "(2, 1, 128) True"]
