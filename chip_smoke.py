@@ -26,11 +26,15 @@ a ``torch.Generator`` seeded 0), in phases:
      weights in shared and in device memory, and slot permutations with
      ZERO/TRASH rows; quant_matmul in both modes (tolerance 0) at shapes
      that are no multiple of a tile, with int8, int16 and int32 codes
-     whose sums wrap int32; HardSigmoid* (three methods) and HardTanh
-     over every code of (4,8)/(6,8)/(8,10)/(8,16) (tolerance 0); flash
-     attention on the reference's five shape cases, hd 128 and 256, rows
-     with no key in their window, GQA through ``mha_flash`` (2e-5 abs/rel
-     in f32) and bf16 (1e-2); the RG-LRU scan (K7) on the reference's
+     whose sums wrap int32, at the edges of the int8 kernel's 128 x 128 x
+     64 tiles, with x rows off 16-byte alignment, and an int8 wrap case
+     (16 x 135,168 x 8, every code -128: -2,080,374,784 everywhere);
+     HardSigmoid* (three methods) and HardTanh over every code of
+     (4,8)/(6,8)/(8,10)/(8,16) (tolerance 0); flash attention on the
+     reference's five shape cases, hd 128 and 256, rows with no key in
+     their window, the full (16, 2048, 64) causal prefill, T no multiple
+     of the 64-row q tile, hd 4 and 12, GQA through ``mha_flash`` (2e-5
+     abs/rel in f32) and bf16 (1e-2); the RG-LRU scan (K7) on the reference's
      three shapes, a zero-decay running sum, a 4096-step long-memory
      chain, bf16 (one bf16 ulp), strided (B, T, W) views, and the
      full-width (4096, 2, 2560) inputs of the model's layer 0 (1e-5
@@ -47,7 +51,9 @@ a ``torch.Generator`` seeded 0), in phases:
      ``mha_flash`` on (1, 2048, 16, 64) f32 q/k/v, and ``qlstm_seq`` at
      the paper's model width; each result equal to its plain version
      (attention within 2e-5), each kernel launched, K2 exactly once;
-  5. CUDA-event timings of each kernel, its plain version and, where one
+  5. the count of tensor-core instructions (IMMA in quant_matmul, HMMA in
+     flash attention) in the built SASS, then CUDA-event timings of each
+     kernel, its plain version and, where one
      PyTorch call computes the same function, that call, at the shapes
      of phases 3, 4, 4b and 6, the server's per-wave latency, the
      RecurrentGemma-2B prefill's wall time and device idle share, and its
@@ -69,6 +75,7 @@ no result.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -81,11 +88,14 @@ import torch.nn.functional as F
 
 # H100 SXM data-sheet peaks (dense): device memory 3.35 TB/s; int8
 # tensor-core rate 1,979 TOP/s, the card's peak for 8-bit integer codes;
-# fp32 on the CUDA cores 67 TFLOP/s (TF32's 495 is off limits: it cannot
-# hold attention's 2e-5 tolerance).
+# fp32 on the CUDA cores 67 TFLOP/s; TF32 on the tensor cores 495 TFLOP/s.
+# One TF32 product cannot hold attention's 2e-5 tolerance, but three can
+# (3xTF32: hi*hi + hi*lo + lo*hi), so K8's bound counts three products at
+# the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 # qwen1.5-0.5B (configs/qwen15_05b.py) at a 2048-token prefill.
 PREFILL, D_MODEL, D_FF, HEADS, HEAD_DIM = 2048, 1024, 2816, 16, 64
@@ -195,6 +205,16 @@ def bound(nbytes, ops, ops_per_s):
     operations over the peak rate for their type."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sass_count(build, name, opcode):
+    """Instructions of ``opcode`` (e.g. ``HMMA``) in the SASS of the built
+    library for ``csrc/<name>.cu``, from ``cuobjdump -sass``."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return len(re.findall(rf"\b{opcode}\.", sass))
 
 
 def reset_counts(mods):
@@ -311,6 +331,37 @@ def phase2_ops_kernels(qm, ha, fa, ops, fxp, dev):
                 key = f"quant_matmul_{mode}"
                 errs[key] = max(errs[key], max_err(got, want))
                 n += 1
+    # int8 on the tensor cores: the edges of the 128 x 128 x 64 tiles; x
+    # rows that are not 16-byte aligned (a column slice, so K % 16 != 0,
+    # and a contiguous view at an offset base pointer); and the int32 wrap:
+    # 135,168 products of -128 * -128 sum to 2,214,592,512, which leaves
+    # int32 and wraps to -2,080,374,784.
+    flat = codes(rng, (5 + 37 * 1000,), 8, dev)
+    offset = flat[5:].view(37, 1000)
+    check(offset.data_ptr() % 16 != 0, "the offset view is 16-byte aligned")
+    sliced = codes(rng, (129, 1100), 8, dev)[:, 3:1000]
+    wrap_x = torch.full((16, 135168), -128, dtype=torch.int8, device=dev)
+    wrap_w = torch.full((135168, 8), -128, dtype=torch.int8, device=dev)
+    exact = int((wrap_x[0].long() * wrap_w[:, 0].long()).sum())
+    check(exact > 2 ** 31 - 1, f"the wrap case's sum {exact} stays in int32")
+    pairs = [(codes(rng, (m, k), 8, dev), codes(rng, (k, nn), 8, dev))
+             for m, k, nn in ((127, 16, 129), (129, 48, 127), (257, 1040, 257),
+                              (129, 1040, 127))]
+    pairs += [(x, codes(rng, (x.shape[1], 70), 8, dev)) for x in (sliced, offset)]
+    pairs.append((wrap_x, wrap_w))
+    for x, w in pairs:
+        for mode, cfg in (("int32", None), ("requant", fxp.FixedPointConfig(4, 8))):
+            got = qm.quant_matmul(x, w, out_mode=mode, cfg=cfg)
+            torch.cuda.synchronize()
+            want = qm.quant_matmul_plain(x, w, out_mode=mode, cfg=cfg)
+            check(got.dtype == want.dtype, f"quant_matmul dtype {got.dtype}")
+            key = f"quant_matmul_{mode}"
+            errs[key] = max(errs[key], max_err(got, want))
+            n += 1
+    wrapped = qm.quant_matmul(wrap_x, wrap_w)
+    torch.cuda.synchronize()
+    check(bool((wrapped == -2080374784).all()),
+          f"the int8 wrap case gave {wrapped.unique().tolist()}, not -2080374784")
     for a, b in ((4, 8), (6, 8), (8, 10), (8, 16)):
         cfg = fxp.FixedPointConfig(a, b)
         xs = torch.arange(cfg.int_min, cfg.int_max + 1, device=dev).to(
@@ -331,16 +382,25 @@ def phase2_ops_kernels(qm, ha, fa, ops, fxp, dev):
                                     max_err(got, ha.hard_tanh_plain(view, cfg=cfg)))
             n += 1
     # The reference's five cases, then hd 128 and 256 (T != S, a window),
-    # then a window that leaves the last rows no key (the softmax's mean).
-    for t, s_len, hd, causal, window in ((64, 64, 32, True, None),
-                                         (64, 64, 32, False, None),
-                                         (96, 96, 16, True, 24),
-                                         (40, 72, 32, False, None),
-                                         (128, 128, 64, True, None),
-                                         (300, 300, 128, True, None),
-                                         (100, 257, 256, False, 40),
-                                         (100, 40, 32, False, 10)):
-        q, k, v = (torch.as_tensor(rng.normal(0, 1, (3, ln, hd)),
+    # a window that leaves the last rows no key (the softmax's mean), the
+    # full qwen1.5-0.5B prefill shape, T no multiple of the 64-row q tile,
+    # and hd 4 and 12 (padded to 8 and 16 in the kernel); the full shape and
+    # every case with T or hd off those multiples also in bf16.
+    bf16_err = 0.0
+    for bh, t, s_len, hd, causal, window in ((3, 64, 64, 32, True, None),
+                                             (3, 64, 64, 32, False, None),
+                                             (3, 96, 96, 16, True, 24),
+                                             (3, 40, 72, 32, False, None),
+                                             (3, 128, 128, 64, True, None),
+                                             (3, 300, 300, 128, True, None),
+                                             (3, 100, 257, 256, False, 40),
+                                             (3, 100, 40, 32, False, 10),
+                                             (HEADS, PREFILL, PREFILL, HEAD_DIM,
+                                              True, None),
+                                             (3, 200, 200, 64, True, None),
+                                             (3, 130, 130, 4, True, None),
+                                             (3, 100, 90, 12, False, 30)):
+        q, k, v = (torch.as_tensor(rng.normal(0, 1, (bh, ln, hd)),
                                    dtype=torch.float32, device=dev)
                    for ln in (t, s_len, s_len))
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -349,6 +409,14 @@ def phase2_ops_kernels(qm, ha, fa, ops, fxp, dev):
         errs["flash_attention"] = max(errs["flash_attention"],
                                       close_err(got, want, 2e-5))
         n += 1
+        if t == PREFILL or t % 64 or hd % 8:
+            qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+            got = fa.flash_attention(qb, kb, vb, causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16, f"bf16 attention returned {got.dtype}")
+            bf16_err = max(bf16_err, close_err(got, fa.flash_attention_plain(
+                qb, kb, vb, causal=causal, window=window), 1e-2))
+            n += 1
     q = torch.as_tensor(rng.normal(0, 1, (2, 128, 8, 64)), dtype=torch.float32,
                         device=dev)
     k, v = (torch.as_tensor(rng.normal(0, 1, (2, 128, 2, 64)),
@@ -361,8 +429,8 @@ def phase2_ops_kernels(qm, ha, fa, ops, fxp, dev):
     got = ops.mha_flash(qb, kb, vb, causal=True, window=50)
     torch.cuda.synchronize()
     check(got.dtype == torch.bfloat16, f"bf16 attention returned {got.dtype}")
-    bf16_err = close_err(got, ops.mha_flash(qb, kb, vb, causal=True, window=50,
-                                            use_kernel=False), 1e-2)
+    bf16_err = max(bf16_err, close_err(got, ops.mha_flash(
+        qb, kb, vb, causal=True, window=50, use_kernel=False), 1e-2))
     n += 2
     for name, e in errs.items():
         check(name == "flash_attention" or e == 0,
@@ -709,6 +777,11 @@ def main() -> int:
     log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5: timings ----------------------------------------------------
+    sass = {op: sass_count(_build, name, op)
+            for name, op in (("quant_matmul", "IMMA"), ("flash_attention", "HMMA"))}
+    log(f"phase 5: tensor-core instructions in the built SASS (cuobjdump -sass; "
+        f"IMMA in quant_matmul, HMMA in flash_attention): {sass}")
+    check(all(sass.values()), f"a tensor-core kernel has no MMA instruction: {sass}")
     acts, sd = session.model.acts, session.model.fxp.storage_dtype
     kw = dict(cfg=session.model.fxp, hs_method=session.accel.hs_method,
               hs_slope_shift=acts.hs_slope_shift, hs_bound=acts.hs_bound,
@@ -741,7 +814,7 @@ def main() -> int:
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
-             source=lstm_src, symbol="qlstm_stack_kernel", counter="multilayer",
+             source=lstm_src, symbol=("qlstm_stack_kernel",), counter="multilayer",
              err=errs["multilayer"],
              kern=lambda: qc.qlstm_seq_multilayer(x3, wxs, whs, bs, zeros, zeros, **kw),
              plain=lambda: qc.qlstm_seq_multilayer_plain(x3, wxs, whs, bs, zeros,
@@ -750,7 +823,7 @@ def main() -> int:
         # K2 is K1's kernel at one layer behind the ``qlstm_seq`` entry, which
         # only ``ops.qlstm_seq`` calls (phase 4b).
         dict(name="qlstm_seq", replaces="src/repro/kernels/qlstm_cell.py:305",
-             source=lstm_src, symbol="qlstm_stack_kernel", counter="seq",
+             source=lstm_src, symbol=("qlstm_stack_kernel",), counter="seq",
              err=max(errs["seq"], ops_errs["qlstm_seq"]),
              kern=lambda: qc.qlstm_seq(x3, wxs[0], whs[0], bs[0], h0=zeros[0],
                                        c0=zeros[0], return_state=True, **kw),
@@ -758,7 +831,7 @@ def main() -> int:
                                               c0=zeros[0], return_state=True, **kw),
              bound=bound(k1_bytes, lstm_ops(model) * 256, INT8_OPS_PER_S)),
         dict(name="qlstm_seq_slot", replaces="src/repro/kernels/qlstm_cell.py:401",
-             source=lstm_src, symbol="qlstm_stack_kernel", counter="slot",
+             source=lstm_src, symbol=("qlstm_stack_kernel",), counter="slot",
              err=errs["slot"],
              kern=lambda: qc.qlstm_seq_slot(x4, g, s, table, wxs, whs, bs, **kw),
              plain=lambda: qc.qlstm_seq_slot_plain(x4, g, s, table, wxs, whs, bs, **kw),
@@ -784,21 +857,23 @@ def main() -> int:
     kept_pairs = HEADS * PREFILL * (PREFILL + 1) // 2   # causal (q, k) pairs
     specs += [
         dict(name="quant_matmul_int32", replaces="src/repro/kernels/quant_matmul.py:66",
-             source=qmm_src, symbol="qmm_dp4a_kernel", counter="int32",
+             source=qmm_src, symbol=("qmm_imma_kernel", "qmm_wt_kernel"),
+             counter="int32",
              err=max(errs["quant_matmul_int32"], ops_errs["quant_matmul_int32"]),
              kern=lambda: qm.quant_matmul(xq, wq),
              plain=lambda: qm.quant_matmul_plain(xq, wq),
              library=lambda: torch._int_mm(xq, wq),
              bound=bound(mm_in + 4 * PREFILL * D_FF, mm_ops, INT8_OPS_PER_S)),
         dict(name="quant_matmul_requant", replaces="src/repro/kernels/quant_matmul.py:66",
-             source=qmm_src, symbol="qmm_dp4a_kernel", counter="requant",
+             source=qmm_src, symbol=("qmm_imma_kernel", "qmm_wt_kernel"),
+             counter="requant",
              err=max(errs["quant_matmul_requant"], ops_errs["quant_matmul_requant"]),
              kern=lambda: qm.quant_matmul(xq, wq, out_mode="requant", cfg=cfg48),
              plain=lambda: qm.quant_matmul_plain(xq, wq, out_mode="requant", cfg=cfg48),
              bound=bound(mm_in + PREFILL * D_FF, mm_ops, INT8_OPS_PER_S)),
         # Timed at the paper's method (step); the other two are logged.
         dict(name="hard_sigmoid_star", replaces="src/repro/kernels/hard_act.py:74",
-             source=hact_src, symbol="hard_act_kernel", counter="hard_sigmoid_star",
+             source=hact_src, symbol=("hard_act_kernel",), counter="hard_sigmoid_star",
              err=max(errs["hard_sigmoid_star"], ops_errs["hard_sigmoid_star"]),
              kern=lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method="step"),
              plain=lambda: ha.hard_sigmoid_star_plain(pre, cfg=cfg48, method="step"),
@@ -806,26 +881,27 @@ def main() -> int:
              bound=bound(ew_bytes + 4 * (thr.numel() + outs.numel()), pre.numel(),
                          FP32_OPS_PER_S)),
         dict(name="hard_tanh", replaces="src/repro/kernels/hard_act.py:105",
-             source=hact_src, symbol="hard_act_kernel", counter="hard_tanh",
+             source=hact_src, symbol=("hard_act_kernel",), counter="hard_tanh",
              err=max(errs["hard_tanh"], ops_errs["hard_tanh"]),
              kern=lambda: ha.hard_tanh(pre, cfg=cfg48),
              plain=lambda: ha.hard_tanh_plain(pre, cfg=cfg48),
              library=lambda: torch.clamp(pre, ht_lo, ht_hi),
              bound=bound(ew_bytes, pre.numel(), FP32_OPS_PER_S)),
         dict(name="flash_attention", replaces="src/repro/kernels/flash_attention.py:88",
-             source="src/repro_torch/csrc/flash_attention.cu", symbol="flash_kernel",
+             source="src/repro_torch/csrc/flash_attention.cu", symbol=("flash_tc_kernel",),
              counter="flash_attention",
              err=max(errs["flash_attention"], ops_errs["flash_attention"]),
              kern=lambda: fa.flash_attention(q2, k2, v2, causal=True),
              plain=lambda: fa.flash_attention_plain(q2, k2, v2, causal=True),
              library=lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-             bound=bound(4 * q2.numel() * 4, 4 * HEAD_DIM * kept_pairs,
-                         FP32_OPS_PER_S)),
+             # 3xTF32: three products for each of QK^T and PV
+             bound=bound(4 * q2.numel() * 4, 3 * 4 * HEAD_DIM * kept_pairs,
+                         TF32_OPS_PER_S)),
         # K7 at the prefill's shape on layer 0's inputs: (T, B, W) views.  No
         # single PyTorch call computes it: the cumprod/cumsum form underflows
         # over 4096 steps.  Its plain version is 4096 small steps: 3 calls.
         dict(name="rglru_seq", replaces="src/repro/kernels/rglru_scan.py:48",
-             source="src/repro_torch/csrc/rglru_scan.cu", symbol="rglru_seq_kernel",
+             source="src/repro_torch/csrc/rglru_scan.cu", symbol=("rglru_seq_kernel",),
              counter="rglru_seq", err=errs["rglru_seq"], plain_iters=3,
              kern=lambda: rg.rglru_seq(*k7_in),
              plain=lambda: rg.rglru_seq_plain(*k7_in),
@@ -843,8 +919,13 @@ def main() -> int:
         ms, call_ms = graph_ms(kern, 500), cuda_ms(kern, 500)
         plain_ms = cuda_ms(sp["plain"], sp.get("plain_iters", 20))
         avgs, _ = profile(kern, 50)
-        k_us = sum(device_us(e) for e in avgs
-                   if is_cuda(e) and sp["symbol"] in e.key) / 50
+        part_us = {sym: sum(device_us(e) for e in avgs
+                            if is_cuda(e) and sym in e.key) / 50
+                   for sym in sp["symbol"]}
+        k_us = sum(part_us.values())
+        if len(part_us) > 1:
+            log(f"phase 5: {sp['name']}: kernel alone by kernel (ms): "
+                f"{ {sym: us / 1e3 for sym, us in part_us.items()} }")
         lib_ms = None
         if "library" in sp:
             lib_ms = cuda_ms(sp["library"], 200)

@@ -6,7 +6,8 @@ bf16, and returns (BH, T, hd) in q's dtype, accumulated in fp32, with a
 causal mask, a sliding ``window`` (key s is kept for query t when
 ``t - s < window``) and the padded-kv mask of the reference.  Head
 grouping (GQA) is the caller's job (``ops.mha_flash``).  It takes the
-hand-written CUDA kernel of ``csrc/flash_attention.cu`` for CUDA tensors —
+hand-written CUDA kernel of ``csrc/flash_attention.cu`` (both products on
+the TF32 tensor cores in 3xTF32 form) for CUDA tensors —
 there is no fallback: if the kernel cannot be built or launched, the call
 raises — and its plain torch version :func:`flash_attention_plain` (the
 masked fp32 softmax of ``ref.attention_ref``) only for tensors on the
@@ -106,7 +107,10 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     if hd % 4 or not 4 <= hd <= 256:
         raise ValueError(f"the kernel takes hd a multiple of 4 in [4, 256], "
                          f"got {hd}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel copies 4 elements at a time: an offset view is copied once
+    q, k, v = (t.contiguous() if t.data_ptr() % (4 * t.element_size()) == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -5,8 +5,11 @@ arithmetic, late rounding).
 :func:`quant_matmul` takes the hand-written CUDA kernel of
 ``csrc/quant_matmul.cu`` for CUDA tensors — there is no fallback: if the
 kernel cannot be built or launched, the call raises — and its plain torch
-version :func:`quant_matmul_plain` only for tensors on the CPU.  Both
-modes of the reference run in one kernel:
+version :func:`quant_matmul_plain` only for tensors on the CPU.  int8
+codes run on the int8 tensor cores (``mma.sync`` m16n8k32, after a
+transposing pass that writes w^T into a scratch the wrapper allocates);
+int16/int32 codes, which Hopper's tensor cores do not take, on the CUDA
+cores.  Both modes of the reference run in one kernel:
 
   * ``out_mode="int32"``: the raw int32 accumulator (wrapping at 2**32,
     as XLA's int32 dot does);
@@ -44,10 +47,10 @@ _CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
 class QmmArgs(ctypes.Structure):
     """Mirror of ``struct QmmArgs`` in ``csrc/quant_matmul.cu``."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "w", "out")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("x", "w", "out", "wt")]
                 + [(n, ctypes.c_int) for n in (
                     "M", "K", "N", "requant", "shift", "lo", "hi",
-                    "out_bytes", "vec")])
+                    "out_bytes")])
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +115,10 @@ def _launch(x: Tensor, w: Tensor, out_mode: str,
     args = QmmArgs(x=x.data_ptr(), w=w.data_ptr(), out=out.data_ptr(),
                    M=m, K=k, N=n, requant=int(requant),
                    out_bytes=out.element_size())
+    if dt == torch.int8:  # w^T, K rounded up to 16 (the kernel zero-pads it)
+        wt = torch.empty((n, -(-k // 16) * 16), dtype=torch.int8,
+                         device=x.device)
+        args.wt = wt.data_ptr()
     if requant:       # S5: product format -> cfg, saturated
         args.shift = fxp.product_config(cfg, cfg).frac_bits - cfg.frac_bits
         args.lo, args.hi = cfg.int_min, cfg.int_max

@@ -101,6 +101,60 @@ def test_flash_attention_bf16_inputs():
                                rtol=1e-2, atol=1e-2)
 
 
+def _tf32_split(x):
+    """The kernel's 3xTF32 split of an f32 tensor: hi is x rounded to tf32
+    (10 mantissa bits) to nearest, ties away from zero, by bit masking
+    (``cvt.rna``'s rounding, which the kernel does in integer operations);
+    lo = x - hi, truncated to tf32 as the tensor cores read it."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b as the kernel's MMAs form it: ``terms=3`` is 3xTF32
+    (lo.hi + hi.lo + hi.hi), ``terms=1`` a single TF32 product.  Every
+    product of two tf32 values is exact in f32; the sums are in f32."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    if terms == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_tf32(q, k, v, causal, window, terms):
+    """``ref.attention_ref`` with both products in TF32 form."""
+    t, s = q.shape[1], k.shape[1]
+    sc = _mm_tf32(q, k.transpose(1, 2), terms) * q.shape[2] ** -0.5
+    qpos, kpos = torch.arange(t)[:, None], torch.arange(s)[None, :]
+    keep = torch.ones(t, s, dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= (qpos - kpos) < window
+    p = torch.softmax(sc.masked_fill(~keep, tref.NEG_INF), dim=-1)
+    return _mm_tf32(p, v, terms)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, 48)])
+@pytest.mark.usefixtures("reference")
+def test_3xtf32_products_hold_the_reference_tolerance(causal, window):
+    """Why the CUDA kernel may run on the TF32 tensor cores: with both
+    products in 3xTF32 form, attention at (3, 256, 64) stays within the
+    reference's 2e-5 of ``repro.kernels.ref.attention_ref``; with a single
+    TF32 product it does not."""
+    q, k, v = _qkv(np.random.default_rng(10), 3, 256, 256, 64)
+    want = np.asarray(jref.attention_ref(*map(jnp.asarray, (q, k, v)),
+                                         causal=causal, window=window))
+    tq, tk_, tv = map(torch.as_tensor, (q, k, v))
+    three = _attention_tf32(tq, tk_, tv, causal, window, terms=3)
+    np.testing.assert_allclose(three.numpy(), want, rtol=2e-5, atol=2e-5)
+    one = _attention_tf32(tq, tk_, tv, causal, window, terms=1)
+    assert not np.allclose(one.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_validates_inputs():
     q = torch.zeros(2, 8, 16)
     for fn in (tfa.flash_attention, tfa.flash_attention_plain):
@@ -114,17 +168,21 @@ def test_flash_attention_validates_inputs():
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel equals its plain version on the card: the five
     reference cases, hd 128 and 256, windows with T != S (one leaving rows
-    no key), GQA through ``mha_flash`` (2e-5 in f32) and bf16 inputs
-    (1e-2)."""
+    no key), T no multiple of the kernel's 64-row q tile, hd 4 and 12
+    (padded to 8 and 16 in the kernel), the full (16, 2048, 64) causal
+    prefill, views off the kernel's 16-byte alignment, GQA through
+    ``mha_flash`` (2e-5 in f32) and bf16 inputs (1e-2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     cases = CASES + [(70, 70, 128, True, None), (33, 65, 256, False, 9),
-                     (100, 40, 32, False, 10)]   # rows 49.. keep no key
+                     (100, 40, 32, False, 10),   # rows 49.. keep no key
+                     (200, 200, 64, True, None), (130, 130, 4, True, None),
+                     (100, 90, 12, False, 30), (2048, 2048, 64, True, None)]
     for t, s, hd, causal, window in cases:
         q, k, v = (torch.as_tensor(a, device=dev)
-                   for a in _qkv(rng, 3, t, s, hd))
+                   for a in _qkv(rng, 16 if t == 2048 else 3, t, s, hd))
         got = tfa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -136,6 +194,13 @@ def test_cuda_kernel_matches_plain():
                                          window=window)
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=1e-2, atol=1e-2)
+    # q, k, v as views one element past an aligned base (copied once)
+    flat = torch.as_tensor(rng.normal(0, 1, 3 * 3 * 50 * 32 + 1),
+                           dtype=torch.float32, device=dev)
+    q, k, v = flat[1:].view(3, 3, 50, 32).unbind(0)
+    torch.testing.assert_close(
+        tfa.flash_attention(q, k, v, causal=True),
+        tfa.flash_attention_plain(q, k, v, causal=True), rtol=2e-5, atol=2e-5)
     q = torch.as_tensor(rng.normal(0, 1, (2, 64, 8, 64)), dtype=torch.float32,
                         device=dev)
     kv = torch.as_tensor(rng.normal(0, 1, (2, 2, 64, 2, 64)),

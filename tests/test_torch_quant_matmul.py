@@ -119,6 +119,33 @@ def test_oracles_match_reference(b):
                                   use_kernel=False))
 
 
+@pytest.mark.parametrize("out_mode", ["int32", "requant"])
+@pytest.mark.usefixtures("reference")
+def test_quant_matmul_int8_wrap_int32(out_mode):
+    """Every int8 code -128 at K = 135,168: each exact sum, 2,214,592,512,
+    leaves int32 and wraps to -2,080,374,784.  The plain version and the
+    ``ops`` entry equal the reference's oracles bit for bit."""
+    k = 135168
+    x = np.full((3, k), -128, np.int8)
+    w = np.full((k, 5), -128, np.int8)
+    assert 128 * 128 * k > 2 ** 31 - 1
+    tx, tw, jx, jw = (torch.as_tensor(x), torch.as_tensor(w),
+                      jnp.asarray(x), jnp.asarray(w))
+    if out_mode == "int32":
+        want = jref.quant_matmul_ref(jx, jw)
+        assert (np.asarray(want) == -2080374784).all()
+        _eq(tqm.quant_matmul_plain(tx, tw), want)
+        _eq(tops.quant_matmul(tx, tw), want)
+    else:   # the oracle returns the codes in int32, the entries in int8
+        tc, jc = tfxp.FixedPointConfig(4, 8), jfxp.FixedPointConfig(4, 8)
+        want = jref.quant_matmul_requant_ref(jx, jw, jc)
+        _eq(tref.quant_matmul_requant_ref(tx, tw, tc), want)
+        for got in (tqm.quant_matmul_plain(tx, tw, out_mode="requant", cfg=tc),
+                    tops.quant_matmul_requant(tx, tw, tc)):
+            assert got.dtype == torch.int8
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_quant_matmul_validates_inputs():
     x = torch.zeros(3, 4, dtype=torch.int8)
     for fn in (tqm.quant_matmul, tqm.quant_matmul_plain):
@@ -136,7 +163,10 @@ def test_quant_matmul_validates_inputs():
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel equals its plain version on the card, bit for bit,
     in both modes, at shapes that are no multiple of a tile, for int8,
-    int16 and int32 codes (int16/int32 with sums that wrap int32)."""
+    int16 and int32 codes (int16/int32 with sums that wrap int32); for
+    int8 also at the edges of its 128 x 128 x 64 tiles, with x rows off
+    16-byte alignment (a column slice and an offset base pointer), and in
+    the wrap case of ``test_quant_matmul_int8_wrap_int32``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -154,3 +184,20 @@ def test_cuda_kernel_matches_plain():
                 want = tqm.quant_matmul_plain(x, w, out_mode=out_mode, cfg=cfg)
                 assert got.dtype == want.dtype
                 assert torch.equal(got, want), (b, m, k, n, out_mode)
+    flat = torch.as_tensor(_codes(rng, (5 + 37 * 1000,), 8), device=dev)
+    xs = [torch.as_tensor(_codes(rng, (m, k), 8), device=dev)
+          for m, k in ((127, 16), (129, 48), (257, 1040))]
+    xs += [torch.as_tensor(_codes(rng, (129, 1100), 8), device=dev)[:, 3:1000],
+           flat[5:].view(37, 1000)]
+    pairs = [(x, torch.as_tensor(_codes(rng, (x.shape[1], 129), 8), device=dev))
+             for x in xs]
+    wrap = (torch.full((16, 135168), -128, dtype=torch.int8, device=dev),
+            torch.full((135168, 8), -128, dtype=torch.int8, device=dev))
+    for x, w in pairs + [wrap]:
+        for out_mode, cfg in (("int32", None),
+                              ("requant", tfxp.FixedPointConfig(4, 8))):
+            got = tqm.quant_matmul(x, w, out_mode=out_mode, cfg=cfg)
+            torch.cuda.synchronize()
+            want = tqm.quant_matmul_plain(x, w, out_mode=out_mode, cfg=cfg)
+            assert torch.equal(got, want), (tuple(x.shape), out_mode)
+    assert bool((tqm.quant_matmul(*wrap) == -2080374784).all())
