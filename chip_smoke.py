@@ -23,6 +23,8 @@ a ``torch.Generator`` seeded 0), in phases:
   2. every kernel against its plain torch version on the card: the LSTM
      kernels bit for bit (tolerance 0) across (4,8)/(6,8)/(8,16)/(8,24),
      arithmetic/step, mxu/vpu, 1-3 layers, batches of 1, 37 and 256,
+     hidden sizes 20, 40 and 64 (a row is 3, 5 or 8 warps, a quad of lanes
+     per unit),
      weights in shared and in device memory, and slot permutations with
      ZERO/TRASH rows; quant_matmul in both modes (tolerance 0) at shapes
      that are no multiple of a tile, with int8, int16 and int32 codes
@@ -38,7 +40,8 @@ a ``torch.Generator`` seeded 0), in phases:
      three shapes, a zero-decay running sum, a 4096-step long-memory
      chain, bf16 (one bf16 ulp), strided (B, T, W) views, and the
      full-width (4096, 2, 2560) inputs of the model's layer 0 (1e-5
-     relative + 1e-6 absolute in f32);
+     relative + 1e-6 absolute in f32), which must take the tile route and
+     equal the lane route bit for bit;
   3. ``infer`` on 256 windows through the fused kernel, equal to the
      ``ref`` engine, with every kernel's launch count read;
   4. a ``StreamServer`` (batch 64, device-resident state) serving 128
@@ -55,13 +58,16 @@ a ``torch.Generator`` seeded 0), in phases:
      flash attention) in the built SASS, then CUDA-event timings of each
      kernel, its plain version and, where one
      PyTorch call computes the same function, that call, at the shapes
-     of phases 3, 4, 4b and 6, the server's per-wave latency, the
+     of phases 3, 4, 4b and 6 (K7's lane route on the same inputs as its
+     earlier reading; K3's latency floor: its launch at T = 0 plus T x L
+     of its marginal steps, and its probes at T = 1 and with the weights
+     in device memory), the server's per-wave latency, the
      RecurrentGemma-2B prefill's wall time and device idle share, and its
      decode tokens/s;
   6. RecurrentGemma-2B: ``forward_prefill`` at B=2, T=4096 (twice the
      window) with finite last-token logits and K7 launched exactly 18
-     times (one per rec layer); ``serve.main`` at ``--preset full``
-     (batch 4, 16 prompt + 16 generated tokens, a 2048-slot KV ring); and
+     times (one per rec layer, all on the tile route); ``serve.main`` at
+     ``--preset full`` (batch 4, 16 prompt + 16 generated tokens, a 2048-slot KV ring); and
      a 32-token prompt decoded step by step at B=2 whose last logits equal
      the prefill's within 0.3 (the reference's bound) with f32
      activations, and in bf16 within the distance between the bf16 and
@@ -74,6 +80,7 @@ rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
 
+import itertools
 import json
 import re
 import subprocess
@@ -240,66 +247,57 @@ def phase2_kernels_vs_plain(qc, fxp, dev):
     rng = np.random.default_rng(0)
     errs = {"multilayer": 0, "seq": 0, "slot": 0}
     n = 0
-    for a, b in ((4, 8), (6, 8), (8, 16), (8, 24)):   # (8,24): int32 codes
+    for (a, b), method, unit, L, B, H in itertools.product(
+            ((4, 8), (6, 8), (8, 16), (8, 24)),        # (8,24): int32 codes
+            ("arithmetic", "step"), ("mxu", "vpu"), (1, 2, 3), (1, 37, 256),
+            (20, 40, 64)):                             # rows of 3, 5, 8 warps
         cfg = fxp.FixedPointConfig(a, b)
-        for method in ("arithmetic", "step"):
-            for unit in ("mxu", "vpu"):
-                for L in (1, 2, 3):
-                    for B in (1, 37, 256):
-                        x, wxs, whs, bs, h0s, c0s = rand_stack(
-                            rng, 6, B, 1, 20, L, cfg, dev)
-                        kw = dict(cfg=cfg, hs_method=method, compute_unit=unit)
-                        want, wstate = qc.qlstm_seq_multilayer_plain(
-                            x, wxs, whs, bs, h0s, c0s, **kw)
-                        got, state = qc.qlstm_seq_multilayer(
-                            x, wxs, whs, bs, h0s, c0s, **kw)
-                        torch.cuda.synchronize()
-                        errs["multilayer"] = max(
-                            errs["multilayer"], max_err(got, want),
-                            *(max_err(p, q) for s1, s2 in zip(state, wstate)
-                              for p, q in zip(s1, s2)))
-                        g_out, g_h, g_c, args = qc._launch(
-                            x, wxs, whs, bs, h0s=h0s, c0s=c0s, batch_block=None,
-                            hs_slope_shift=3, hs_bound=3.0, ht_min=-1.0,
-                            ht_max=1.0, weights_in_smem=False, cfg=cfg,
-                            hs_method=method)
-                        torch.cuda.synchronize()
-                        check(args.w_smem == 0, "device-memory weights path not taken")
-                        errs["multilayer"] = max(
-                            errs["multilayer"], max_err(g_out, want),
-                            *(max_err(g_h[li], wstate[li][0]) for li in range(L)),
-                            *(max_err(g_c[li], wstate[li][1]) for li in range(L)))
-                        if L == 1:
-                            o1, (h1, c1) = qc.qlstm_seq(
-                                x, wxs[0], whs[0], bs[0], h0=h0s[0], c0=c0s[0],
-                                return_state=True, **kw)
-                            p1, (ph, pc) = qc.qlstm_seq_plain(
-                                x, wxs[0], whs[0], bs[0], h0=h0s[0], c0=c0s[0],
-                                return_state=True, **kw)
-                            torch.cuda.synchronize()
-                            errs["seq"] = max(errs["seq"], max_err(o1, p1),
-                                              max_err(h1, ph), max_err(c1, pc))
-                        rows = 2 * B + 2
-                        table = torch.as_tensor(
-                            rng.integers(-90, 90, (rows, L, 2, 20)),
-                            dtype=torch.int32, device=dev)
-                        table[rows - 2] = 0
-                        g = torch.as_tensor(rng.permutation(2 * B)[:B],
-                                            dtype=torch.int32, device=dev)
-                        s = torch.as_tensor(rng.permutation(2 * B)[:B],
-                                            dtype=torch.int32, device=dev)
-                        g[0], s[-1] = rows - 2, rows - 1      # ZERO gather, TRASH scatter
-                        got, new_table = qc.qlstm_seq_slot(x, g, s, table, wxs,
-                                                           whs, bs, **kw)
-                        torch.cuda.synchronize()
-                        want, want_table = qc.qlstm_seq_slot_plain(
-                            x, g, s, table, wxs, whs, bs, **kw)
-                        errs["slot"] = max(errs["slot"], max_err(got, want),
-                                           max_err(new_table, want_table))
-                        check(not new_table[rows - 2].any(), "ZERO row written")
-                        check(torch.equal(new_table[rows - 1], table[rows - 1]),
-                              "TRASH row written")
-                        n += 1
+        x, wxs, whs, bs, h0s, c0s = rand_stack(rng, 6, B, 1, H, L, cfg, dev)
+        kw = dict(cfg=cfg, hs_method=method, compute_unit=unit)
+        want, wstate = qc.qlstm_seq_multilayer_plain(x, wxs, whs, bs, h0s, c0s,
+                                                     **kw)
+        got, state = qc.qlstm_seq_multilayer(x, wxs, whs, bs, h0s, c0s, **kw)
+        torch.cuda.synchronize()
+        errs["multilayer"] = max(
+            errs["multilayer"], max_err(got, want),
+            *(max_err(p, q) for s1, s2 in zip(state, wstate)
+              for p, q in zip(s1, s2)))
+        g_out, g_h, g_c, args = qc._launch(
+            x, wxs, whs, bs, h0s=h0s, c0s=c0s, batch_block=None,
+            hs_slope_shift=3, hs_bound=3.0, ht_min=-1.0, ht_max=1.0,
+            weights_in_smem=False, cfg=cfg, hs_method=method)
+        torch.cuda.synchronize()
+        check(args.w_smem == 0, "device-memory weights path not taken")
+        errs["multilayer"] = max(
+            errs["multilayer"], max_err(g_out, want),
+            *(max_err(g_h[li], wstate[li][0]) for li in range(L)),
+            *(max_err(g_c[li], wstate[li][1]) for li in range(L)))
+        if L == 1:
+            o1, (h1, c1) = qc.qlstm_seq(x, wxs[0], whs[0], bs[0], h0=h0s[0],
+                                        c0=c0s[0], return_state=True, **kw)
+            p1, (ph, pc) = qc.qlstm_seq_plain(x, wxs[0], whs[0], bs[0], h0=h0s[0],
+                                              c0=c0s[0], return_state=True, **kw)
+            torch.cuda.synchronize()
+            errs["seq"] = max(errs["seq"], max_err(o1, p1), max_err(h1, ph),
+                              max_err(c1, pc))
+        rows = 2 * B + 2
+        table = torch.as_tensor(rng.integers(-90, 90, (rows, L, 2, H)),
+                                dtype=torch.int32, device=dev)
+        table[rows - 2] = 0
+        g = torch.as_tensor(rng.permutation(2 * B)[:B], dtype=torch.int32,
+                            device=dev)
+        s = torch.as_tensor(rng.permutation(2 * B)[:B], dtype=torch.int32,
+                            device=dev)
+        g[0], s[-1] = rows - 2, rows - 1                  # ZERO gather, TRASH scatter
+        got, new_table = qc.qlstm_seq_slot(x, g, s, table, wxs, whs, bs, **kw)
+        torch.cuda.synchronize()
+        want, want_table = qc.qlstm_seq_slot_plain(x, g, s, table, wxs, whs, bs,
+                                                   **kw)
+        errs["slot"] = max(errs["slot"], max_err(got, want),
+                           max_err(new_table, want_table))
+        check(not new_table[rows - 2].any(), "ZERO row written")
+        check(torch.equal(new_table[rows - 1], table[rows - 1]), "TRASH row written")
+        n += 1
     for name, e in errs.items():
         check(e == 0, f"kernel {name} differs from its plain version by {e}")
     return errs, n
@@ -466,7 +464,7 @@ def phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig, dev, mods):
     launches = read_counts(mods)
     want = {"int32": 1, "requant": 1, "hard_sigmoid_star": 3, "hard_tanh": 1,
             "flash_attention": 1, "multilayer": 0, "seq": 1, "slot": 0,
-            "rglru_seq": 0}
+            "rglru_seq": 0, "rglru_seq_lane": 0}
     check(launches == want, f"the ops path launched {launches}")
 
     errs = {"quant_matmul_int32": max_err(acc, qm.quant_matmul_plain(x, w)),
@@ -511,11 +509,14 @@ def layer0_scan_inputs(T, L, RG, params, cfg, tokens):
 
 def phase2_rglru(rg, full_inputs, dev):
     """K7 against its plain version on the card; returns (max |err| in
-    f32, max |err| in bf16, case count).  Raises past 1e-5 relative +
-    1e-6 absolute in f32 or one bf16 ulp in bf16 (the kernel rounds the
-    multiply and the add one at a time, as torch does; the margin is for
-    exp's last bit)."""
+    f32, max |err| in bf16, case count, launches by route).  Raises past
+    1e-5 relative + 1e-6 absolute in f32 or one bf16 ulp in bf16 (the
+    kernel rounds the multiply and the add one at a time, as torch does;
+    the margin is for exp's last bit), when the full-width inputs do not
+    take the tile route, or when the tile route's bits differ from the
+    lane route's on them."""
     rng = np.random.default_rng(5)
+    before = dict(rg.LAUNCHES)
 
     def inputs(t, b, w, scale=1.0, zero_decay=False):
         la = -np.abs(rng.normal(0, scale, (t, b, w)))
@@ -553,7 +554,14 @@ def phase2_rglru(rg, full_inputs, dev):
                                      "K7 strided"))
             n += 2
     check(not full_inputs[0].is_contiguous(), "layer-0 inputs are not views")
-    return err, err16, n
+    check(rg.tile_route_fits(*full_inputs), "the layer-0 inputs miss the tile route")
+    tiles = rg.LAUNCHES["rglru_seq"]
+    got = rg.rglru_seq(*full_inputs)
+    lane = rg._launch(*full_inputs, route="lane")
+    torch.cuda.synchronize()
+    check(rg.LAUNCHES["rglru_seq"] == tiles + 1, "the full-width case left the tile route")
+    check(torch.equal(got, lane), "K7's tile and lane routes differ on the layer-0 inputs")
+    return err, err16, n, {k: v - before[k] for k, v in rg.LAUNCHES.items()}
 
 
 def phase_lm(T, serve, mods, params, cfg, tokens, dev):
@@ -565,7 +573,7 @@ def phase_lm(T, serve, mods, params, cfg, tokens, dev):
     launches = read_counts(mods)
     n_rec = sum(k == "rec" for k in cfg.layer_kinds())
     check(launches == {**{k: 0 for k in launches}, "rglru_seq": n_rec},
-          f"the prefill launched {launches}, not K7 {n_rec} times")
+          f"the prefill launched {launches}, not K7's tile route {n_rec} times")
     check(tuple(logits.shape) == (tokens.shape[0], 1, cfg.vocab_size) and
           bool(torch.isfinite(logits).all()), f"prefill logits {logits.shape}")
     log(f"phase 6: forward_prefill {tuple(tokens.shape)} -> {tuple(logits.shape)} "
@@ -687,11 +695,12 @@ def main() -> int:
     log(f"phase 2: RecurrentGemma-2B: {n_params} f32 parameters drawn in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    errs["rglru_seq"], k7_bf16_err, n7 = phase2_rglru(rg, k7_in, dev)
+    errs["rglru_seq"], k7_bf16_err, n7, k7_routes = phase2_rglru(rg, k7_in, dev)
     log(f"phase 2: {n7} K7 cases incl. the full-width {tuple(k7_in[0].shape)} "
         f"layer-0 inputs, max |kernel - plain| = {errs['rglru_seq']} (1e-6 + "
-        f"1e-5 relative), bf16 {k7_bf16_err} (one bf16 ulp) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"1e-5 relative), bf16 {k7_bf16_err} (one bf16 ulp); launches by route "
+        f"{k7_routes}; the full-width case on the tile route, equal to the lane "
+        f"route bit for bit, in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the session at full width --------------------------------
     model = QLSTMConfig()
@@ -814,7 +823,7 @@ def main() -> int:
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
-             source=lstm_src, symbol=("qlstm_stack_kernel",), counter="multilayer",
+             source=lstm_src, symbol=("qlstm_rows_kernel",), counter="multilayer",
              err=errs["multilayer"],
              kern=lambda: qc.qlstm_seq_multilayer(x3, wxs, whs, bs, zeros, zeros, **kw),
              plain=lambda: qc.qlstm_seq_multilayer_plain(x3, wxs, whs, bs, zeros,
@@ -823,7 +832,7 @@ def main() -> int:
         # K2 is K1's kernel at one layer behind the ``qlstm_seq`` entry, which
         # only ``ops.qlstm_seq`` calls (phase 4b).
         dict(name="qlstm_seq", replaces="src/repro/kernels/qlstm_cell.py:305",
-             source=lstm_src, symbol=("qlstm_stack_kernel",), counter="seq",
+             source=lstm_src, symbol=("qlstm_rows_kernel",), counter="seq",
              err=max(errs["seq"], ops_errs["qlstm_seq"]),
              kern=lambda: qc.qlstm_seq(x3, wxs[0], whs[0], bs[0], h0=zeros[0],
                                        c0=zeros[0], return_state=True, **kw),
@@ -831,7 +840,7 @@ def main() -> int:
                                               c0=zeros[0], return_state=True, **kw),
              bound=bound(k1_bytes, lstm_ops(model) * 256, INT8_OPS_PER_S)),
         dict(name="qlstm_seq_slot", replaces="src/repro/kernels/qlstm_cell.py:401",
-             source=lstm_src, symbol=("qlstm_stack_kernel",), counter="slot",
+             source=lstm_src, symbol=("qlstm_rows_kernel",), counter="slot",
              err=errs["slot"],
              kern=lambda: qc.qlstm_seq_slot(x4, g, s, table, wxs, whs, bs, **kw),
              plain=lambda: qc.qlstm_seq_slot_plain(x4, g, s, table, wxs, whs, bs, **kw),
@@ -901,9 +910,11 @@ def main() -> int:
         # single PyTorch call computes it: the cumprod/cumsum form underflows
         # over 4096 steps.  Its plain version is 4096 small steps: 3 calls.
         dict(name="rglru_seq", replaces="src/repro/kernels/rglru_scan.py:48",
-             source="src/repro_torch/csrc/rglru_scan.cu", symbol=("rglru_seq_kernel",),
+             source="src/repro_torch/csrc/rglru_scan.cu", symbol=("rglru_tile_kernel",),
              counter="rglru_seq", err=errs["rglru_seq"], plain_iters=3,
              kern=lambda: rg.rglru_seq(*k7_in),
+             # earlier reading: the first design, kept as the lane route
+             earlier=(lambda: rg._launch(*k7_in, route="lane"), "rglru_lane_kernel"),
              plain=lambda: rg.rglru_seq_plain(*k7_in),
              # one exp, one multiply, one add per element, on the CUDA cores
              bound=bound(3 * 4 * k7_in[1].numel(), 3 * k7_in[1].numel(),
@@ -943,6 +954,36 @@ def main() -> int:
             f"kernel alone {k_us / 1e3:.6f} ms, plain {plain_ms:.6f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
             f"{b_ms:.6f} ms by {b_by}) on {card}")
+        if "earlier" in sp:
+            fn, sym = sp["earlier"]
+            e_avgs, _ = profile(fn, 50)
+            e_ms = sum(device_us(e) for e in e_avgs if is_cuda(e) and sym in e.key) / 50e3
+            kernels[-1].update(earlier_kernel_ms=e_ms, earlier_ms=graph_ms(fn, 500))
+            log(f"phase 5: {sp['name']}: earlier design ({sym}) on the same inputs: "
+                f"kernel alone {e_ms:.6f} ms, {kernels[-1]['earlier_ms']:.6f} ms "
+                f"device; now {k_us / 1e3 / e_ms:.4f} of it on {card}")
+    # K3's latency floor: one round trip (its launch at T = 0: the prologue's
+    # loads and the scatter, nothing else) plus T x L steps at its marginal
+    # step time (T = 6 against T = 48); then the probes of the round-trip
+    # diagnosis, T = 1 and the weights read from device memory.
+    def k3_alone(xc, weights_in_smem=True):
+        fn = lambda: qc._launch(xc, wxs, whs, bs, gather=g, scatter=s, table=table,
+                                batch_block=None, weights_in_smem=weights_in_smem,
+                                **kw)
+        avgs, _ = profile(fn, 50)
+        return sum(device_us(e) for e in avgs
+                   if is_cuda(e) and "qlstm_rows_kernel" in e.key) / 50e3
+    k3 = next(k for k in kernels if k["name"] == "qlstm_seq_slot")
+    t0_ms, t6_ms, t48_ms = (k3_alone(x4.repeat(n, 1, 1)[:t]) for n, t in
+                            ((1, 0), (1, T), (8, 8 * T)))
+    step_ms = (t48_ms - t6_ms) / (7 * T * L)
+    k3["latency_floor_ms"] = t0_ms + T * L * step_ms
+    log(f"phase 5: qlstm_seq_slot latency floor {k3['latency_floor_ms']:.6f} ms = "
+        f"T=0 launch {t0_ms:.6f} ms + {T * L} steps x {step_ms:.6f} ms (T={8 * T}: "
+        f"{t48_ms:.6f} ms); the kernel at T={T} is {t6_ms:.6f} ms alone here, "
+        f"{k3['kernel_ms']:.6f} ms above; probes: T=1 {k3_alone(x4[:1]):.6f} ms, "
+        f"weights in device memory {k3_alone(x4, weights_in_smem=False):.6f} ms "
+        f"on {card}")
     for method in ("arithmetic", "1to1"):
         m_ms = graph_ms(lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method=method), 500)
         log(f"phase 5: hard_sigmoid_star ({method}): {m_ms:.6f} ms device on {card}")

@@ -57,7 +57,7 @@ class QlstmArgs(ctypes.Structure):
         "scatter", "table", "new_table", "out", "step_thr", "step_out")]
         + [(n, ctypes.c_int) for n in (
             "T", "B", "M", "H", "L", "n_rows", "rows_per_block", "w_smem",
-            "shift", "lo", "hi", "hs_step", "n_thr", "slope_shift",
+            "x_smem", "shift", "lo", "hi", "hs_step", "n_thr", "slope_shift",
             "bound_int", "half_int", "one_int", "ht_lo", "ht_hi")])
 
 
@@ -78,10 +78,26 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _default_rows_per_block(bsz: int, device: torch.device) -> int:
-    """Spread the batch over the SMs, at most 32 rows per block."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(32, -(-bsz // sms)))
+def max_rows_per_block(hdim: int) -> int:
+    """Batch rows one thread block holds at hidden size ``hdim``: a row is
+    a group of whole warps with a quad of lanes per unit (4H lanes, at
+    most 256), a block at most 1,024 threads, and rows that span several
+    warps sync on named barriers, of which a block has 15 besides
+    ``__syncthreads``'."""
+    if hdim < 1:
+        raise ValueError(f"the hidden size must be positive, got {hdim}")
+    group = 32 * -(-min(4 * hdim, 256) // 32)
+    return 32 if group == 32 else min(15, 1024 // group)
+
+
+def _rows_per_block(batch_block: Optional[int], bsz: int, hdim: int,
+                    device: torch.device) -> int:
+    """``batch_block`` capped at :func:`max_rows_per_block`; by default the
+    batch spread over the SMs, 1 to 8 rows a block."""
+    if batch_block is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        batch_block = min(8, -(-bsz // sms))
+    return max(1, min(batch_block, max_rows_per_block(hdim)))
 
 
 def _check_layers(w_xs, w_hs, b_wides, *rest):
@@ -209,9 +225,12 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
             weights_in_smem: bool = True, counter: Optional[str] = None):
     """Launch the stack kernel (slot variant when ``table`` is given) on
     the current stream; returns ``(out, h_fin, c_fin | new_table, args)``
-    where ``args.w_smem`` reports whether the weights were staged in
-    shared memory.  The launch is counted under ``counter`` (default: the
-    entry the variant serves, ``"slot"`` or ``"multilayer"``)."""
+    where ``args.w_smem`` and ``args.x_smem`` report whether the weights
+    and the x codes were staged in shared memory and
+    ``args.rows_per_block`` the batch rows a block took
+    (:func:`_rows_per_block`).  The launch is counted under ``counter``
+    (default: the entry the variant serves, ``"slot"`` or
+    ``"multilayer"``)."""
     dev = x_int.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
@@ -248,7 +267,7 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
         x=_ptr(x), w=_ptr(w), bias=_ptr(bias), out=_ptr(out),
         step_thr=_ptr(thr), step_out=_ptr(outs),
         T=t_len, B=bsz, M=m, H=hdim, L=n,
-        rows_per_block=batch_block or _default_rows_per_block(bsz, dev),
+        rows_per_block=_rows_per_block(batch_block, bsz, hdim, dev),
         w_smem=int(weights_in_smem), shift=shift, lo=cfg.int_min,
         hi=cfg.int_max, hs_step=int(step),
         n_thr=0 if thr is None else thr.numel(),
@@ -299,7 +318,7 @@ def qlstm_seq_multilayer(x_int: Tensor, w_xs: Sequence[Tensor],
     deeper (H, 4H)), ``w_hs`` (H, 4H), ``b_wides`` (4H,) int32, and the
     (B, H) int32 carries ``h0s``/``c0s``.  ``batch_block`` is the number
     of batch rows per thread block (default: the batch spread over the
-    SMs).  Returns ``(out, ((h_last, c_last), ...))`` with out the last
+    SMs; at most :func:`max_rows_per_block`).  Returns ``(out, ((h_last, c_last), ...))`` with out the last
     layer's (T, B, H) codes in ``x_int``'s dtype — bit-exact with
     threading ``kernels/ref.qlstm_seq_ref`` through the stack."""
     return _stack(x_int, w_xs, w_hs, b_wides, h0s, c0s, "multilayer",

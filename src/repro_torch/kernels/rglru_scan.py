@@ -12,13 +12,22 @@ tensors' strides (w's must be 1), so transposed views go in without a
 copy; the result has b's memory layout.  ``batch_block`` is accepted for
 the reference's signature; the kernel tiles its own way.
 
-:data:`LAUNCHES` counts kernel launches.
+The source has two routes, chosen by shape (:func:`tile_route_fits`), not
+as a fallback: the tile route (``rglru_tile_kernel``: 32-channel tiles of
+64 steps copied into a shared-memory ring by TMA, exp on helper warps,
+the chain on one warp) wherever its tensor maps can take log_a and b,
+and the lane route (``rglru_lane_kernel``: one thread per channel)
+elsewhere.  Both give the same bits.
+
+:data:`LAUNCHES` counts kernel launches by route: ``"rglru_seq"`` (tile)
+and ``"rglru_seq_lane"`` (lane).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -27,7 +36,9 @@ from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"rglru_seq": 0}
+LAUNCHES = {"rglru_seq": 0, "rglru_seq_lane": 0}
+
+_ROUTES = {"tile": (0, "rglru_seq"), "lane": (1, "rglru_seq_lane")}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -47,7 +58,7 @@ def load_library() -> ctypes.CDLL:
     ``nvcc`` is missing or the build fails."""
     lib = _build.load_library("rglru_scan")
     lib.rglru_launch.argtypes = [ctypes.POINTER(RglruArgs), ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.rglru_launch.restype = ctypes.c_int
     lib.rglru_args_size.restype = ctypes.c_int
     lib.rglru_error_string.argtypes = [ctypes.c_int]
@@ -62,6 +73,19 @@ def _check(log_a: Tensor, b: Tensor):
     if b.ndim != 3 or tuple(log_a.shape) != tuple(b.shape):
         raise ValueError(f"expected log_a and b of one (T, B, W) shape, got "
                          f"{tuple(log_a.shape)} and {tuple(b.shape)}")
+
+
+def tile_route_fits(*operands: Tensor) -> bool:
+    """Whether the tile route can take these (T, B, W) operands (log_a, b
+    and the output h; w's stride 1): its TMA tensor maps need, for each, a
+    16-byte aligned base and t and b strides that are positive multiples
+    of 16 bytes."""
+    for t in operands:
+        es = t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(d) <= 0 or t.stride(d) * es % 16
+                                    for d in (0, 1)):
+            return False
+    return True
 
 
 def rglru_seq_plain(log_a: Tensor, b: Tensor, *,
@@ -86,9 +110,11 @@ def rglru_seq(log_a: Tensor, b: Tensor, *, batch_block: int = 128) -> Tensor:
     return _launch(log_a, b)
 
 
-def _launch(log_a: Tensor, b: Tensor) -> Tensor:
+def _launch(log_a: Tensor, b: Tensor, route: Optional[str] = None) -> Tensor:
     """Launch the kernel on the current stream for validated operands on
-    one device; returns h in b's dtype and memory layout."""
+    one device; returns h in b's dtype and memory layout.  ``route``
+    ("tile" or "lane") overrides the choice by :func:`tile_route_fits`;
+    the tile route raises on operands it cannot take."""
     if log_a.stride(2) != 1:
         log_a = log_a.contiguous()
     if b.stride(2) != 1:
@@ -96,6 +122,9 @@ def _launch(log_a: Tensor, b: Tensor) -> Tensor:
     out = torch.empty_like(b)      # keeps b's strides when b is dense
     if out.numel() == 0:
         return out
+    if route is None:
+        route = "tile" if tile_route_fits(log_a, b, out) else "lane"
+    code, counter = _ROUTES[route]
     t, bsz, w = b.shape
     lib = load_library()
     args = RglruArgs(log_a=log_a.data_ptr(), b=b.data_ptr(),
@@ -106,9 +135,9 @@ def _launch(log_a: Tensor, b: Tensor) -> Tensor:
     stream = torch.cuda.current_stream(b.device).cuda_stream
     rc = lib.rglru_launch(ctypes.byref(args),
                           int(log_a.dtype == torch.bfloat16),
-                          int(b.dtype == torch.bfloat16), stream)
+                          int(b.dtype == torch.bfloat16), code, stream)
     if rc != 0:
-        raise RuntimeError(f"rglru_seq kernel launch failed: "
+        raise RuntimeError(f"rglru_seq kernel launch failed ({route} route): "
                            f"{lib.rglru_error_string(rc).decode()}")
-    LAUNCHES["rglru_seq"] += 1
+    LAUNCHES[counter] += 1
     return out

@@ -243,6 +243,20 @@ def test_slot_ids_outside_the_table_are_contained():
     torch.testing.assert_close(new_table, table, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("hdim,rows", [(1, 32), (8, 32), (9, 15), (20, 10),
+                                       (32, 8), (33, 6), (64, 4), (200, 4),
+                                       (1024, 4)])
+def test_max_rows_per_block_follows_the_group_size(hdim, rows):
+    """A row is a group of whole warps, a quad of lanes per unit (at most
+    256 lanes): up to H = 8 one warp, and a block holds 32 rows; beyond it
+    at most 15 rows (named barriers 1..15) and 1,024 threads."""
+    assert tk.max_rows_per_block(hdim) == rows
+    assert tk._rows_per_block(500, 2, hdim, torch.device("cpu")) == rows
+    assert tk._rows_per_block(1, 2, hdim, torch.device("cpu")) == 1
+    with pytest.raises(ValueError, match="positive"):
+        tk.max_rows_per_block(0)
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """Each CUDA kernel equals its plain version on the card, bit for bit,
@@ -298,6 +312,68 @@ def test_cuda_kernels_match_plain_versions():
                                                    bb, **kw)
                     assert torch.equal(got[0], want[0])
                     assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_across_hidden_sizes_and_blocks():
+    """Rows of one warp (H = 8: __syncwarp), of 3, 5 and 8 warps on named
+    barriers (H = 20, the paper's, 40 and 64) and of two passes of 8 warps
+    (H = 100), 1 and 3 layers, int8, int16 and int32 codes, batches of 1,
+    37 and 256, explicit rows per block (1, 3, 8 and one past the cap) and
+    weights in device memory: every output, final state and new table
+    equals the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    blocks = ((None, True), (1, False), (3, True), (8, False), (64, True))
+    for hdim in (8, 20, 40, 64, 100):
+        for a, b in ((4, 8), (8, 16), INT32_CODES):
+            tc = tfxp.FixedPointConfig(a, b)
+            method = "step" if b == 8 else "arithmetic"
+            for num_layers in (1, 3):
+                for B in (1, 37, 256):
+                    x, wxs, whs, bs = _rand_lstm(rng, 6, B, 3, hdim, a, b,
+                                                 num_layers)
+                    xt = torch.as_tensor(x, device=dev)
+                    wx = [torch.as_tensor(w, device=dev) for w in wxs]
+                    wh = [torch.as_tensor(w, device=dev) for w in whs]
+                    bb = [torch.as_tensor(v, device=dev) for v in bs]
+                    h0, c0 = ([torch.as_tensor(rng.integers(-90, 90, (B, hdim)),
+                                               dtype=torch.int32, device=dev)
+                               for _ in range(num_layers)] for _ in range(2))
+                    kw = dict(cfg=tc, hs_method=method)
+                    want, wstate = tk.qlstm_seq_multilayer_plain(
+                        xt, wx, wh, bb, h0, c0, **kw)
+                    for rows, smem in blocks:
+                        out, h_f, c_f, args = tk._launch(
+                            xt, wx, wh, bb, h0s=h0, c0s=c0, batch_block=rows,
+                            hs_slope_shift=3, hs_bound=3.0, ht_min=-1.0,
+                            ht_max=1.0, weights_in_smem=smem, **kw)
+                        torch.cuda.synchronize()
+                        assert args.rows_per_block == tk._rows_per_block(
+                            rows, B, hdim, dev)
+                        assert smem or args.w_smem == 0
+                        assert torch.equal(out, want)
+                        for li, (h, c) in enumerate(wstate):
+                            assert torch.equal(h_f[li], h)
+                            assert torch.equal(c_f[li], c)
+                    n_rows = 2 * B + 2
+                    table = torch.as_tensor(
+                        rng.integers(-90, 90, (n_rows, num_layers, 2, hdim)),
+                        dtype=torch.int32, device=dev)
+                    table[n_rows - 2] = 0
+                    g = torch.as_tensor(rng.permutation(2 * B)[:B],
+                                        dtype=torch.int32, device=dev)
+                    s = torch.as_tensor(rng.permutation(2 * B)[:B],
+                                        dtype=torch.int32, device=dev)
+                    g[0], s[-1] = n_rows - 2, n_rows - 1
+                    got = tk.qlstm_seq_slot(xt, g, s, table, wx, wh, bb, **kw)
+                    torch.cuda.synchronize()
+                    want_slot = tk.qlstm_seq_slot_plain(xt, g, s, table, wx, wh,
+                                                        bb, **kw)
+                    assert torch.equal(got[0], want_slot[0])
+                    assert torch.equal(got[1], want_slot[1])
 
 
 @pytest.mark.gpu

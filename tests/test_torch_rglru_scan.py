@@ -104,6 +104,48 @@ def test_entry_validates_shapes():
             fn(torch.zeros(3, 4), torch.zeros(3, 4))
 
 
+@pytest.mark.parametrize("shape,dtypes,offset,fits", [
+    ((5, 3, 8), (torch.float32, torch.float32), 0, True),       # 32-byte rows
+    ((33, 3, 70), (torch.float32, torch.float32), 0, False),    # 280 bytes
+    ((9, 2, 72), (torch.float32, torch.float32), 0, True),
+    ((9, 2, 72), (torch.bfloat16, torch.bfloat16), 0, True),    # 144 bytes
+    ((9, 2, 12), (torch.bfloat16, torch.float32), 0, False),    # 24-byte log_a rows
+    ((9, 2, 12), (torch.float32, torch.bfloat16), 0, False),
+    ((9, 2, 40), (torch.bfloat16, torch.float32), 0, True),
+    ((9, 2, 64), (torch.float32, torch.float32), 1, False),     # base off by 4 bytes
+    ((9, 2, 64), (torch.float32, torch.float32), 4, True),      # base off by 16 bytes
+], ids=["w8", "w70", "w72", "w72-bf16", "w12-bf16a", "w12-bf16b", "w40-bf16a",
+        "offset4B", "offset16B"])
+def test_tile_route_fits_takes_aligned_rows_only(shape, dtypes, offset, fits):
+    """The tile route's predicate: 16-byte aligned bases, t and b strides
+    and rows of W elements, for each operand; (T, B, W) views of (B, T, W)
+    tensors at the model's widths fit."""
+    t, bsz, w = shape
+    ops = []
+    for dt in dtypes:
+        base = torch.zeros(t, bsz, w + offset, dtype=dt)
+        ops.append(base[:, :, offset:])
+    if offset == 0:
+        assert ops[0].data_ptr() % 16 == 0
+    assert K.tile_route_fits(*ops) is fits
+    # the model's operands: (T, B, W) views of (B, T, W) tensors
+    views = [torch.zeros(2, 64, 2560).transpose(0, 1) for _ in range(2)]
+    assert K.tile_route_fits(*views)
+    odd = [torch.zeros(2, 64, 70).transpose(0, 1) for _ in range(2)]
+    assert not K.tile_route_fits(*odd)
+
+
+def test_tile_route_fits_checks_the_output_too():
+    """The output takes b's strides when b is dense and is contiguous
+    otherwise, so a sliced b whose own strides fit can still leave the
+    output's rows off 16 bytes: the route is chosen on all three."""
+    la, b = (torch.zeros(9, 2, 40)[:, :, :34] for _ in range(2))
+    out = torch.empty_like(b)
+    assert out.is_contiguous() and out.stride(1) * 4 % 16
+    assert K.tile_route_fits(la, b)
+    assert not K.tile_route_fits(la, b, out)
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """Off the CPU the entry launches its kernel or raises: tensors on a
     device that is neither the CPU nor CUDA are refused, not computed,
@@ -206,7 +248,7 @@ def test_cuda_kernel_matches_plain():
     multiply and the add one at a time, as torch does; the margin is for
     exp's last bit), on the reference's shapes, the zero-decay anchor, a
     4096-step long-memory chain, strided (B, T, W) views and bf16, and
-    launches once per call."""
+    launches once per call, on the route its shape selects."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -215,10 +257,12 @@ def test_cuda_kernel_matches_plain():
         _inputs(4096, 2, 64, seed=4, decay_scale=0.01)]     # long memory
     for log_a, b in cases:
         la, bb = (torch.as_tensor(a, device=dev) for a in (log_a, b))
-        n = K.LAUNCHES["rglru_seq"]
+        key = "rglru_seq" if K.tile_route_fits(la, bb) else "rglru_seq_lane"
+        n, total = K.LAUNCHES[key], sum(K.LAUNCHES.values())
         got = K.rglru_seq(la, bb)
         torch.cuda.synchronize()
-        assert K.LAUNCHES["rglru_seq"] == n + 1
+        assert K.LAUNCHES[key] == n + 1
+        assert sum(K.LAUNCHES.values()) == total + 1
         torch.testing.assert_close(got, K.rglru_seq_plain(la, bb),
                                    rtol=1e-5, atol=1e-6)
         la_v = la.transpose(0, 1).contiguous().transpose(0, 1)
@@ -230,3 +274,62 @@ def test_cuda_kernel_matches_plain():
         want16 = K.rglru_seq_plain(la.bfloat16(), bb.bfloat16())
         torch.testing.assert_close(got16.float(), want16.float(),
                                    rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_routes_by_shape_and_agree_bit_for_bit():
+    """Each shape takes the route ``tile_route_fits`` names, counted under
+    that route's key: T not a multiple of the 64-step chunk and T below it,
+    B*W not a multiple of the 32-channel tile with W unaligned (70, lane)
+    and aligned (2560, 2568: a ragged last tile), bf16 log_a and/or b,
+    (B, T, W) views, a base off 16-byte alignment and a sliced b whose
+    output rows are not 16-byte multiples.  Every result is
+    within the plain version's tolerance (1e-5 relative + 1e-6 in f32, one
+    bf16 ulp in bf16), and wherever the tile route runs, the lane route
+    gives the same bits on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [((100, 3, 64), f32, f32, "tile"), ((5, 2, 64), f32, f32, "tile"),
+             ((70, 2, 2568), f32, f32, "tile"), ((130, 2, 2560), f32, f32, "tile"),
+             ((33, 3, 70), f32, f32, "lane"), ((64, 2, 70), b16, b16, "lane"),
+             ((65, 2, 2560), b16, b16, "tile"), ((65, 2, 40), b16, f32, "tile"),
+             ((65, 2, 36), f32, b16, "lane"), ((200, 1, 4096), f32, b16, "tile")]
+    for seed, ((t, bsz, w), da, db, route) in enumerate(cases):
+        log_a, b = _inputs(t, bsz, w, seed=seed)
+        la, bb = (torch.as_tensor(a, device=dev) for a in (log_a, b))
+        la, bb = la.to(da), bb.to(db)
+        views = [(la, bb), tuple(x.transpose(0, 1).contiguous().transpose(0, 1)
+                                 for x in (la, bb))]
+        padded = torch.zeros(t, bsz, w + 1, dtype=da, device=dev)
+        padded[:, :, 1:] = la
+        views.append((padded[:, :, 1:], bb))            # base off by 2 or 4 bytes
+        for i, (x, y) in enumerate(views):
+            want_route = route if i < 2 else "lane"
+            assert K.tile_route_fits(x, y) is (want_route == "tile")
+            key = "rglru_seq" if want_route == "tile" else "rglru_seq_lane"
+            before = dict(K.LAUNCHES)
+            got = K.rglru_seq(x, y)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES[key] == before[key] + 1
+            assert sum(K.LAUNCHES.values()) == sum(before.values()) + 1
+            assert got.dtype == db and got.shape == (t, bsz, w)
+            want = K.rglru_seq_plain(x, y)
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
+                                       rtol=1e-5 if db == f32 else 2 ** -7)
+            if want_route == "tile":
+                lane = K._launch(x, y, route="lane")
+                torch.cuda.synchronize()
+                assert torch.equal(got, lane)
+    big = torch.as_tensor(_inputs(9, 2, 40, seed=9)[1], device=dev)
+    la, bb = (-big.abs())[:, :, :34], big[:, :, :34]   # output rows of 136 bytes
+    assert K.tile_route_fits(la, bb)
+    before = dict(K.LAUNCHES)
+    got = K.rglru_seq(la, bb)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rglru_seq_lane"] == before["rglru_seq_lane"] + 1
+    torch.testing.assert_close(got, K.rglru_seq_plain(la, bb), rtol=1e-5, atol=1e-6)
+    misaligned = torch.zeros(9, 2, 71, device=dev)[:, :, 1:]
+    with pytest.raises(RuntimeError, match="tile route"):
+        K._launch(misaligned, misaligned, route="tile")
