@@ -17,7 +17,8 @@ and a stateful ``StreamServer`` — at the full width of the paper's model
 widths, nothing cut (``configs/recurrentgemma_2b.py``: 26 layers, d_model
 and lru_width 2560, 10 heads of 256 on 1 KV head, window 2048, d_ff 7680,
 vocab 256,000; bf16 activations over f32 master params, random init from
-a ``torch.Generator`` seeded 0), in phases:
+a ``torch.Generator`` seeded 0), and quantisation-aware training of the
+paper's model (``train_qat``) on the card, in phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -32,7 +33,12 @@ a ``torch.Generator`` seeded 0), in phases:
      64 tiles, with x rows off 16-byte alignment, and an int8 wrap case
      (16 x 135,168 x 8, every code -128: -2,080,374,784 everywhere);
      HardSigmoid* (three methods) and HardTanh over every code of
-     (4,8)/(6,8)/(8,10)/(8,16) (tolerance 0); flash attention on the
+     (4,8)/(6,8)/(8,10)/(8,16) (tolerance 0); HardSigmoid* ``step`` on
+     each of its routes (bytes, words, bisect): every code of those widths
+     that int8, int16 and int32 storage hold, int16 codes outside (4,8)'s
+     range, (6,16) codes in int8 (thresholds beyond -128 and 127), each on
+     a view off 16-byte alignment and on a size that leaves a tail
+     (tolerance 0); flash attention on the
      reference's five shape cases, hd 128 and 256, rows with no key in
      their window, the full (16, 2048, 64) causal prefill, T no multiple
      of the 64-row q tile, hd 4 and 12, GQA through ``mha_flash`` (2e-5
@@ -63,7 +69,10 @@ a ``torch.Generator`` seeded 0), in phases:
      of its marginal steps, and its probes at T = 1 and with the weights
      in device memory), the server's per-wave latency, the
      RecurrentGemma-2B prefill's wall time and device idle share, and its
-     decode tokens/s;
+     decode tokens/s; HardSigmoid* ``step`` beside its earlier design (the
+     bisect route on the same codes) and ``arithmetic``/``1to1`` kernel
+     alone; a ``train_qat`` step's wall time, device busy time and idle
+     share;
   6. RecurrentGemma-2B: ``forward_prefill`` at B=2, T=4096 (twice the
      window) with finite last-token logits and K7 launched exactly 18
      times (one per rec layer, all on the tile route); ``serve.main`` at
@@ -71,7 +80,16 @@ a ``torch.Generator`` seeded 0), in phases:
      a 32-token prompt decoded step by step at B=2 whose last logits equal
      the prefill's within 0.3 (the reference's bound) with f32
      activations, and in bf16 within the distance between the bf16 and
-     the f32 prefill.
+     the f32 prefill;
+  7. ``train_qat`` on the card at the paper's model (``QLSTMConfig()``,
+     seed 0) on ``pems_like_dataset(seq_len=6, n_days=28)``, 200 steps of
+     batch 64: finite losses whose last 20 average below the first 20; 10
+     straight steps equal, bit for bit, 5 steps ended by SIGTERM
+     (checkpoint-and-exit), a restore onto the card, an
+     ``AsyncCheckpointer`` save, and 5 more steps resumed from it; after
+     training, ``infer(path="qat")`` within one LSB of the dequantised
+     ``infer(path="int")`` (``tests/test_qlstm.py``'s bound) and the int
+     path through K1 equal to the ``ref`` engine.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -82,7 +100,10 @@ no result.
 
 import itertools
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -436,6 +457,35 @@ def phase2_ops_kernels(qm, ha, fa, ops, fxp, dev):
     return errs, bf16_err, n
 
 
+def phase2_step_routes(ha, fxp, dev):
+    """HardSigmoid* ``step`` on each of its routes against its plain
+    version (tolerance 0); returns (max error, case count, cases by
+    route).  Raises when a route is left untried."""
+    err, n, routes = 0, 0, {"bytes": 0, "words": 0, "bisect": 0}
+
+    def case(xs, cfg):
+        nonlocal err, n
+        routes[ha.step_route(ha.hard_act.HardSigmoidStarSpec(cfg), xs.dtype).name] += 1
+        for view in (xs, xs[3:], xs[: xs.numel() - 5]):  # off 16 bytes; a tail
+            got = ha.hard_sigmoid_star(view, cfg=cfg, method="step")
+            torch.cuda.synchronize()
+            want = ha.hard_sigmoid_star_plain(view, cfg=cfg, method="step")
+            check(got.dtype == view.dtype and got.shape == view.shape,
+                  "HardSigmoid* step changed dtype or shape")
+            err = max(err, max_err(got, want))
+            n += 1
+
+    for (a, b), dtype in itertools.product(((4, 8), (6, 8), (8, 10), (8, 16), (6, 16)),
+                                           (torch.int8, torch.int16, torch.int32)):
+        cfg, info = fxp.FixedPointConfig(a, b), torch.iinfo(dtype)
+        lo, hi = max(cfg.int_min, info.min), min(cfg.int_max, info.max)
+        case(torch.arange(lo, hi + 1, device=dev).to(dtype).repeat(3), cfg)
+    case(torch.arange(-400, 400, device=dev).to(torch.int16), fxp.FXP_4_8)
+    check(all(routes.values()), f"a step route was left untried: {routes}")
+    check(err == 0, f"HardSigmoid* step differs from its plain version by {err}")
+    return err, n, routes
+
+
 def phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig, dev, mods):
     """The ``kernels.ops`` path at qwen1.5-0.5B widths and the paper's
     LSTM width; returns (inputs, launch counts, max errors)."""
@@ -621,6 +671,95 @@ def phase_lm(T, serve, mods, params, cfg, tokens, dev):
     return launches
 
 
+def phase7_train(repro_torch, model, accel, mods, dev, card):
+    """QAT training on the card; returns the trained int path's launches."""
+    from repro_torch.data import pems_like_dataset
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.tree import tree_leaves
+
+    data = pems_like_dataset(seq_len=6, n_days=28)
+    params0 = repro_torch.build(model, accel, seed=0).params
+    fresh = lambda: repro_torch.build(model, accel, params=params0)
+    quiet = lambda *_: None
+    t0 = time.perf_counter()
+    sess = fresh().train_qat(data, steps=200, batch=64, log_every=1, log=quiet)
+    train_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in sess.train_summary["history"]]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(len(losses) == 200 and all(np.isfinite(losses)), "train_qat losses")
+    check(last < first, f"the QAT loss did not fall: first 20 {first}, last 20 {last}")
+    check(all(p.device.type == "cuda" for p in tree_leaves(sess.params)),
+          "trained params left the card")
+    log(f"phase 7: train_qat 200 steps batch 64 in {train_s:.3f} s; mean loss of "
+        f"the first 20 steps {first}, of the last 20 {last}")
+
+    # 10 straight steps == 5 steps + SIGTERM checkpoint + restore onto the
+    # card + AsyncCheckpointer save + 5 resumed steps, bit for bit.
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=10, batch=64, log_every=5)
+
+    def preempt_at_5(msg):
+        if msg.startswith("[step 5]"):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    try:
+        full = fresh().train_qat(data, log=quiet, **kw)
+        cut = fresh().train_qat(data, ckpt_dir=str(root / "a"), log=preempt_at_5, **kw)
+        check(cut.train_summary["preempted"] and cut.train_summary["step"] == 5,
+              f"SIGTERM did not end the run at step 5: {cut.train_summary['step']}")
+        like = {"params": params0, "opt": init_opt_state(params0, OptConfig()),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        state = ck.restore(str(root / "a"), like)
+        check(all(t.device.type == "cuda" for t in tree_leaves(state)) and
+              int(state["step"]) == 5, "the restored state is not step 5 on the card")
+        saver = ck.AsyncCheckpointer(str(root / "b"))
+        saver.save_async(state, 5)
+        saver.wait()
+        resumed = fresh().train_qat(data, ckpt_dir=str(root / "b"), log=quiet, **kw)
+        check(resumed.train_summary["step"] == 10, "the resumed run did not reach 10")
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(full.params), tree_leaves(resumed.params)))
+        check(same, "10 straight steps differ from 5 + checkpoint + restore + 5")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("phase 7: 10 straight steps equal 5 steps + SIGTERM checkpoint + restore "
+        "+ AsyncCheckpointer save + 5 resumed steps, bit for bit on the card")
+
+    sess.quantize()
+    xte = data["test"][0]
+    yq, yi = sess.infer(xte, path="qat"), sess.infer(xte, path="int")
+    qat_err = float((yq - yi).abs().max())
+    lsb = model.fxp.scale
+    log(f"phase 7: after training, |qat - int| on {len(xte)} test windows: max "
+        f"{qat_err}, {int(((yq - yi).abs() > lsb + 1e-7).sum())} above one LSB ({lsb})")
+    check(qat_err <= lsb + 1e-7, f"qat and int differ by {qat_err} (bound {lsb})")
+    reset_counts(mods)
+    y = sess.infer(xte, path="int")
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    check(launches == {**{k: 0 for k in launches}, "multilayer": 1},
+          f"the trained int path launched {launches}")
+    check(torch.equal(y, sess.infer(xte, path="int", backend="ref")),
+          "the trained int path differs from the ref engine")
+    check(bool(torch.isfinite(y).all()) and tuple(y.shape) == (len(xte), 1),
+          f"int outputs {tuple(y.shape)}")
+    log(f"phase 7: the trained int path equals the ref engine; launches {launches}")
+
+    steps = 10
+    avgs, wall_ms = profile(lambda: fresh().train_qat(
+        data, steps=steps, batch=64, log_every=1000, log=quiet), 1)
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")
+    busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / steps / 1e3
+    step_ms = wall_ms / steps
+    log(f"phase 7: a train_qat step (batch 64): {step_ms:.6f} ms wall under the "
+        f"profiler ({train_s * 1e3 / 200:.6f} ms unprofiled, 200 steps), "
+        f"{busy_ms:.6f} ms device busy, idle share {1 - busy_ms / step_ms:.4f} on {card}")
+    log(avgs.table(sort_by="self_device_time_total", row_limit=10))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -681,6 +820,12 @@ def main() -> int:
     log(f"phase 2: {n2} cases, max |kernel - plain| = {errs2} (tolerance 0; "
         f"flash_attention 2e-5 abs/rel), bf16 attention {bf16_err} (1e-2) "
         f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    step_err, n_step, step_routes = phase2_step_routes(ha, fxp, dev)
+    errs["hard_sigmoid_star"] = max(errs["hard_sigmoid_star"], step_err)
+    log(f"phase 2: {n_step} HardSigmoid* step cases, cases by route {step_routes}, "
+        f"max |kernel - plain| = {step_err} (tolerance 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
     # RecurrentGemma-2B at its published widths: K7's full-width case takes
     # the inputs of the model's layer 0; phase 6 drives the model.
     t0 = time.perf_counter()
@@ -785,6 +930,12 @@ def main() -> int:
         lm_launches = phase_lm(lm, serve, mods, lm_params, lm_cfg, lm_tokens, dev)
     log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 7: QAT training on the card -----------------------------------
+    t0 = time.perf_counter()
+    train_launches = phase7_train(repro_torch, model, AcceleratorConfig(), mods,
+                                     dev, card)
+    log(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 5: timings ----------------------------------------------------
     sass = {op: sass_count(_build, name, op)
             for name, op in (("quant_matmul", "IMMA"), ("flash_attention", "HMMA"))}
@@ -819,7 +970,7 @@ def main() -> int:
     k3_bytes = (x4.numel() + w_bytes + 2 * 64 * 4 + 2 * table.numel() * 4
                 + T * 64 * H)
     launches = {k: infer_launches[k] + serve_launches[k] + ops_launches[k]
-                + lm_launches[k] for k in infer_launches}
+                + lm_launches[k] + train_launches[k] for k in infer_launches}
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
@@ -854,8 +1005,8 @@ def main() -> int:
     mm_in = xq.numel() + wq.numel()
     qmm_src = "src/repro_torch/csrc/quant_matmul.cu"
     hact_src = "src/repro_torch/csrc/hard_act.cu"
-    thr, outs = ha.hard_act.step_table_tensors(
-        ha.hard_act.HardSigmoidStarSpec(cfg48), dev)
+    spec48 = ha.hard_act.HardSigmoidStarSpec(cfg48)
+    thr, outs = ha.hard_act.step_table_tensors(spec48, dev)
     ht_lo, ht_hi = ha.hard_act.hard_tanh_bounds(cfg48)
     ew_bytes = 2 * pre.numel()                       # codes in, codes out
     # Attention on the kernel's (BH, T, hd) layout; the library call takes
@@ -882,9 +1033,12 @@ def main() -> int:
              bound=bound(mm_in + PREFILL * D_FF, mm_ops, INT8_OPS_PER_S)),
         # Timed at the paper's method (step); the other two are logged.
         dict(name="hard_sigmoid_star", replaces="src/repro/kernels/hard_act.py:74",
-             source=hact_src, symbol=("hard_act_kernel",), counter="hard_sigmoid_star",
+             source=hact_src, symbol=("hact_step",), counter="hard_sigmoid_star",
              err=max(errs["hard_sigmoid_star"], ops_errs["hard_sigmoid_star"]),
              kern=lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method="step"),
+             # earlier reading: the first design, kept as the bisect route
+             earlier=(lambda: ha._hs_launch(pre, spec48, "step", bisect=True),
+                      "hard_act_kernel"),
              plain=lambda: ha.hard_sigmoid_star_plain(pre, cfg=cfg48, method="step"),
              # at least one operation per code, on the CUDA cores
              bound=bound(ew_bytes + 4 * (thr.numel() + outs.numel()), pre.numel(),
@@ -984,9 +1138,18 @@ def main() -> int:
         f"{k3['kernel_ms']:.6f} ms above; probes: T=1 {k3_alone(x4[:1]):.6f} ms, "
         f"weights in device memory {k3_alone(x4, weights_in_smem=False):.6f} ms "
         f"on {card}")
+    k5 = next(k for k in kernels if k["name"] == "hard_sigmoid_star")
+    k5["step_route"] = ha.step_route(spec48, pre.dtype).name
     for method in ("arithmetic", "1to1"):
-        m_ms = graph_ms(lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method=method), 500)
-        log(f"phase 5: hard_sigmoid_star ({method}): {m_ms:.6f} ms device on {card}")
+        fn = lambda: ha.hard_sigmoid_star(pre, cfg=cfg48, method=method)
+        m_ms = graph_ms(fn, 500)
+        avgs, _ = profile(fn, 50)
+        k_ms = sum(device_us(e) for e in avgs
+                   if is_cuda(e) and "hard_act_kernel" in e.key) / 50e3
+        k5[f"{method}_kernel_ms"] = k_ms
+        log(f"phase 5: hard_sigmoid_star ({method}): kernel alone {k_ms:.6f} ms, "
+            f"{m_ms:.6f} ms device (bound {k5['bound_ms']:.6f} ms) on {card}")
+    log(f"phase 5: hard_sigmoid_star (step) took the {k5['step_route']} route")
 
     slot_fn = session.compiled_stateful_slots()
     xw = xs[:64, 0]

@@ -1,13 +1,14 @@
 """The accelerator session API — ``repro_torch.build``.
 
-Counterpart of ``repro/api.py`` for the integer inference and serving
-path::
+Counterpart of ``repro/api.py`` for training, integer inference and
+serving::
 
     import repro_torch
     from repro_torch.core.qlstm import QLSTMConfig
     from repro_torch.core.accelerator import AcceleratorConfig
 
     acc = repro_torch.build(QLSTMConfig(), AcceleratorConfig())  # on CUDA
+    acc.train_qat(data, steps=200)           # QAT (§6.1) on the same device
     acc.quantize()                           # float master -> integer codes
     y = acc.infer(x, path="int")             # fused CUDA kernels
 
@@ -20,9 +21,8 @@ backend registry (``ref`` | ``pallas`` | ``xla``); torch runs eagerly, so
 the callables returned by ``compiled*`` are plain closures cached per
 engine.
 
-Not ported yet: ``train_qat`` and the ``qat`` path (training slice),
-``replicate`` and ``build_cluster`` (cluster tier), ``report`` and
-``measure_scenario`` (energy and explorer slices).
+Not ported yet: ``replicate`` and ``build_cluster`` (cluster tier),
+``report`` and ``measure_scenario`` (energy and explorer slices).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from repro_torch.core.qlstm import QLSTMConfig, tree_to
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
-PATHS = ("float", "int")
+PATHS = ("float", "qat", "int")
 
 
 def _resolve_device(device) -> torch.device:
@@ -70,8 +70,8 @@ def build(model: Optional[QLSTMConfig] = None,
 
 class Accelerator:
     """A built accelerator: params + resolved plan + dispatchable
-    datapaths on one device.  Lifecycle: ``build`` -> ``quantize`` ->
-    ``infer`` / ``serve``; stage methods return ``self``."""
+    datapaths on one device.  Lifecycle: ``build`` -> ``train_qat`` ->
+    ``quantize`` -> ``infer`` / ``serve``; stage methods return ``self``."""
 
     def __init__(self, model: QLSTMConfig, accel: AcceleratorConfig, *,
                  params: Optional[Params] = None, seed: int = 0,
@@ -93,6 +93,7 @@ class Accelerator:
             self.params = self.cell.init_params(self.model, gen,
                                                 device=self.device)
         self.qparams: Optional[Params] = None
+        self.train_summary: Optional[Dict[str, Any]] = None
         self._fns: Dict[Tuple[str, str], Any] = {}
 
     def _prepare(self, bk: backends.Backend) -> backends.Backend:
@@ -107,6 +108,70 @@ class Accelerator:
     def _select_stateful(self, backend: Optional[str]) -> backends.Backend:
         return self._prepare(backends.select_stateful(
             self.model, self.accel, override=backend))
+
+    # -- training -----------------------------------------------------------
+
+    def train_qat(self, data, steps: int = 200, *, batch: int = 64,
+                  lr: float = 3e-3, seed: int = 0,
+                  ckpt_dir: Optional[str] = None, log_every: int = 50,
+                  log=print) -> "Accelerator":
+        """Quantisation-aware training (§6.1) on the session's device: MSE
+        regression through ``forward_qat`` (STE fake-quant at every
+        hardware rounding point), gradients from ``torch.autograd``, AdamW.
+
+        ``data``: the dict of ``data.timeseries.pems_like_dataset`` (its
+        ``"train"`` split) or an ``(x, y)`` tuple, x (N, T, M) and y (N,
+        P) float.  Batch ``step`` is drawn by
+        ``np.random.default_rng((seed, step))``, as in the reference, so a
+        run resumed from ``ckpt_dir`` replays the same batches (the
+        shared ``Trainer``: checkpoint/resume, SIGTERM/SIGINT
+        checkpoint-and-exit)."""
+        from repro_torch.training.optimizer import (OptConfig, apply_updates,
+                                                    init_opt_state)
+        from repro_torch.training.train_loop import LoopConfig, Trainer
+        from repro_torch.training.tree import tree_leaves, tree_map
+
+        xtr, ytr = data["train"] if isinstance(data, dict) else data
+        cfg = self.model
+        opt_cfg = OptConfig(name="adamw", lr=lr, weight_decay=0.0,
+                            warmup_steps=min(20, max(1, steps // 10)),
+                            total_steps=steps)
+        state = {"params": self.params,
+                 "opt": init_opt_state(self.params, opt_cfg),
+                 "step": torch.zeros((), dtype=torch.int32, device=self.device)}
+        forward_qat = self.cell.forward_qat
+
+        def step_fn(state, batch_d):
+            params = tree_map(lambda p: p.detach().requires_grad_(True),
+                              state["params"])
+            y = forward_qat(params, batch_d["x"], cfg)
+            mse = torch.mean(torch.square(y - batch_d["y"]))
+            grads = iter(torch.autograd.grad(mse, tree_leaves(params)))
+            # tree_leaves' order is tree_map's over these dicts and lists
+            grads = tree_map(lambda _: next(grads), params)
+            p, o, om = apply_updates(state["params"], grads, state["opt"],
+                                     opt_cfg)
+            mse = mse.detach()
+            return ({"params": p, "opt": o, "step": state["step"] + 1},
+                    {"loss": mse, "mse": mse, **om})
+
+        def batch_fn(step):
+            rng = np.random.default_rng((seed, step))
+            idx = rng.integers(0, len(xtr), batch)
+            return {"x": torch.as_tensor(xtr[idx], device=self.device),
+                    "y": torch.as_tensor(ytr[idx], device=self.device)}
+
+        trainer = Trainer(step_fn, state, batch_fn,
+                          LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                                     ckpt_every=100, log_every=log_every),
+                          log=log)
+        trainer.maybe_resume()
+        self.train_summary = trainer.run()
+        self.params = trainer.state["params"]
+        # Params changed: stale codes and cached entry points must go.
+        self.qparams = None
+        self._fns.clear()
+        return self
 
     # -- quantisation -------------------------------------------------------
 
@@ -126,9 +191,10 @@ class Accelerator:
     def infer(self, x, path: str = "float",
               backend: Optional[str] = None) -> Tensor:
         """x: (B, T, M) float -> (B, P) float on the session's device.
-        ``path``: ``float`` or ``int`` (bit-exact integer datapath,
-        dequantised at the boundary); ``backend`` overrides the plan's
-        engine for the int path."""
+        ``path``: ``float`` (training semantics), ``qat`` (fake-quant
+        graph) or ``int`` (bit-exact integer datapath, dequantised at the
+        boundary); ``backend`` overrides the plan's engine for the int
+        path."""
         return self._fn(path, backend)(x)
 
     def infer_int(self, x_int, backend: Optional[str] = None) -> Tensor:
@@ -224,8 +290,7 @@ class Accelerator:
     def _fn(self, path: str, backend: Optional[str]):
         """Cached entry point for (path, backend)."""
         if path not in PATHS:
-            raise ValueError(f"path must be one of {PATHS}, got {path!r} "
-                             f"(the qat path waits for the training slice)")
+            raise ValueError(f"path must be one of {PATHS}, got {path!r}")
         if backend is not None and path != "int":
             raise ValueError(
                 f"backend={backend!r} only applies to path='int'; the "
@@ -239,8 +304,10 @@ class Accelerator:
             key = (path, "plan")
         if key in self._fns:
             return self._fns[key]
-        if path == "float":
-            params, fwd = self.params, self.cell.forward_float
+        if path in ("float", "qat"):
+            params = self.params
+            fwd = (self.cell.forward_float if path == "float"
+                   else self.cell.forward_qat)
             fn = lambda x: fwd(params, self._input(x), model)
         else:
             qparams, accel = self.qparams, self.accel

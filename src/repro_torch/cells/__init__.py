@@ -40,8 +40,7 @@ def paper_datapath_reason(model: QLSTMConfig, accel) -> Optional[str]:
 @dataclasses.dataclass(frozen=True)
 class CellSpec:
     """Everything one recurrent cell brings to the accelerator contract
-    (field meanings as in the reference's ``CellSpec``; ``forward_qat``
-    waits for the training slice)."""
+    (field meanings as in the reference's ``CellSpec``)."""
 
     name: str
     state_arity: int
@@ -52,6 +51,8 @@ class CellSpec:
     quantize_params: Callable
     #: (params, x, model) -> y — float semantics.
     forward_float: Callable
+    #: (params, x, model) -> y — STE fake-quant at every rounding point.
+    forward_qat: Callable
     #: (qparams, x_int, model, state) -> (y_int, new_state) — the general
     #: integer datapath (both ALU modes, LUT acts); the xla engine.
     run_int_stateful: Callable

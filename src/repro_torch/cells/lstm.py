@@ -58,6 +58,7 @@ SPEC = register(CellSpec(
     init_params=qlstm.init_params,
     quantize_params=qlstm.quantize_params,
     forward_float=qlstm.forward_float,
+    forward_qat=qlstm.forward_qat,
     run_int_stateful=qlstm.forward_int_stateful,
     ref_layer=ref_layer,
     supports_int=supports_int,

@@ -8,7 +8,8 @@ session.params)``) and hand them here.  Then
 ``repro_torch.build(model, accel, params=params_from_reference(tree))``
 and ``repro.build(model, accel, params=...)`` compute the same thing from
 the same numbers.  For the LM side, :func:`lm_params_from_reference`
-does the same for the tree of ``repro.models.transformer.init_model``.
+does the same for the tree of ``repro.models.transformer.init_model``,
+and :func:`train_state_from_reference` for a whole QAT train state.
 This module imports neither JAX nor the reference: it
 only walks dicts and lists of array-likes.
 """
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 
-def _convert(tree: Any, dtype: torch.dtype, device) -> Any:
+def _convert(tree: Any, dtype: Optional[torch.dtype], device) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -54,3 +55,13 @@ def lm_params_from_reference(tree: Any,
     ``repro_torch.models.transformer``, leaf for leaf, as ``dtype`` on
     ``device`` (default: the CPU)."""
     return _convert(tree, dtype, device)
+
+
+def train_state_from_reference(tree: Any,
+                               device: Union[str, torch.device, None] = None):
+    """The reference's QAT train state (``{"params", "opt": {"mu", "nu",
+    "count"}, "step"}`` with numpy arrays at the leaves) -> the port's, each
+    leaf keeping its dtype (float32 params and moments, int32 counts), on
+    ``device`` (default: the CPU) — a reference run continued in the port
+    starts from these."""
+    return _convert(tree, None, device)

@@ -193,12 +193,19 @@ def quantize_to_storage(x: TensorLike, cfg: FixedPointConfig) -> Tensor:
     return quantize(x, cfg).to(cfg.storage_dtype)
 
 
+def clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    """``jnp.clip``, gradient included: 1 inside ``[lo, hi]``, 0 outside and
+    one half on a bound (``torch.clamp`` passes all of it there).  QAT's
+    values sit on the fixed-point grid, so they land on a bound often."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
 def fake_quant(x: Tensor, cfg: FixedPointConfig) -> Tensor:
     """Straight-through-estimator fake quantisation (QAT building block):
     forward ``dequantize(quantize(x))``, backward identity inside the
     representable range."""
     q = dequantize(quantize(x, cfg), cfg)
-    xc = torch.clamp(x, cfg.min_value, cfg.max_value)
+    xc = clip(x, cfg.min_value, cfg.max_value)
     return xc + (q - xc).detach()
 
 

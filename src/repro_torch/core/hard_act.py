@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.fixed_point import (FixedPointConfig, saturate,
+from repro_torch.core.fixed_point import (FixedPointConfig, clip, saturate,
                                           trunc_shift_right)
 
 Tensor = torch.Tensor
@@ -41,7 +41,7 @@ HARDSIGMOID_METHODS = ("arithmetic", "1to1", "step")
 # ---------------------------------------------------------------------------
 
 def hard_tanh(x: Tensor, min_val: float = -1.0, max_val: float = 1.0) -> Tensor:
-    return torch.clamp(x, min_val, max_val)
+    return clip(x, min_val, max_val)
 
 
 def hard_sigmoid(x: Tensor) -> Tensor:

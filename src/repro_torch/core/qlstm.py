@@ -1,17 +1,18 @@
 """The paper's model: quantised LSTM (+ dense head), on torch tensors.
 
-Counterpart of ``repro/core/qlstm.py``.  Two datapaths are ported here:
+Counterpart of ``repro/core/qlstm.py``, with its three datapaths:
 
   1. ``forward_float`` — the float training/eval path with selectable
      activations (exact Sigmoid/Tanh, the baseline's LUT semantics, or
      the paper's HardSigmoid*/HardTanh).
-  2. ``forward_int`` / ``forward_int_stateful`` — the bit-exact integer
+  2. ``forward_qat`` — the float path with straight-through fake-quant at
+     every point the hardware rounds (quantisation-aware training, §6.1),
+     differentiated by ``torch.autograd``; its clips pass half the
+     gradient on a bound, as ``jnp.clip`` does (``fixed_point.clip``).
+  3. ``forward_int`` / ``forward_int_stateful`` — the bit-exact integer
      simulation of the accelerator datapath: ``alu_mode="pipelined"`` is
      the 5-stage ALU with late rounding (S5), ``alu_mode="per_step"`` is
      Algorithm 1 as printed (every product rounded back to (a,b)).
-
-``forward_qat`` (the STE fake-quant graph) belongs to the training slice
-and is not ported yet.
 
 Params are plain dicts of tensors with the reference's tree layout:
 ``{"layers": [{"w_x", "w_h", "b"}, ...], "dense": {"w", "b"}}``.
@@ -138,16 +139,33 @@ def quantize_params(params: Params, cfg: QLSTMConfig) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Float forward
+# Float / QAT forward
 # ---------------------------------------------------------------------------
 
-def _float_gate_act(acts: ActivationConfig):
+def _float_gate_act(acts: ActivationConfig, cfg: FixedPointConfig,
+                    fq: bool = False):
     if acts.gate in ("sigmoid", "lut_sigmoid"):
-        # the LUT's float semantics are the exact sigmoid it quantises
+        # the LUT's float semantics are the exact sigmoid it quantises;
+        # QAT handles the rounding
         return torch.sigmoid
     if acts.gate == "hard_sigmoid_star":
         slope = 2.0 ** (-acts.hs_slope_shift)
-        return lambda x: hard_act.hard_sigmoid_star(x, slope, acts.hs_bound)
+        if not fq:
+            return lambda x: hard_act.hard_sigmoid_star(x, slope, acts.hs_bound)
+
+        # QAT: the hardware's TRUNCATING shift (x_int >> k) as a
+        # straight-through floor, so training sees the deployed
+        # nonlinearity: y = (floor(x_int / 2^k) + half) * 2^-a.
+        def tq_gate(x):
+            sf = float(1 << cfg.frac_bits)
+            x_int = x * sf  # fake_quant already snapped x to the grid
+            lin_i = torch.floor(x_int * slope)
+            lin_i = x_int * slope + (lin_i - x_int * slope).detach()
+            y = (lin_i + (1 << (cfg.frac_bits - 1))) / sf
+            return torch.where(x < -acts.hs_bound, 0.0,
+                               torch.where(x >= acts.hs_bound, 1.0, y))
+
+        return tq_gate
     raise ValueError(acts.gate)
 
 
@@ -159,26 +177,49 @@ def _float_cell_act(acts: ActivationConfig):
     raise ValueError(acts.cell)
 
 
-def forward_float(params: Params, x: Tensor, cfg: QLSTMConfig) -> Tensor:
-    """x: (batch, seq, input_size) float -> (batch, out_features)."""
-    gate = _float_gate_act(cfg.acts)
+def _cell_step_float(p, x_t, h, c, cfg: QLSTMConfig, fq: bool):
+    """One LSTM cell step; ``fq`` puts STE fake-quant at every hardware
+    rounding point (QAT)."""
+    fp = cfg.fxp
+    q = (lambda t: fxp.fake_quant(t, fp)) if fq else (lambda t: t)
+    gate = _float_gate_act(cfg.acts, fp, fq=fq)
     cellact = _float_cell_act(cfg.acts)
-    b, t_len = x.shape[0], x.shape[1]
-    h_t = x
-    h = None
+    pre = q(x_t @ q(p["w_x"]) + h @ q(p["w_h"]) + p["b"])  # S5: one late rounding
+    i, f, g, o = torch.chunk(pre, 4, dim=-1)
+    i, f, o = gate(i), gate(f), gate(o)
+    g = cellact(g)
+    if fq:
+        i, f, g, o = map(q, (i, f, g, o))
+    c_new = q(f * c + i * g)
+    h_new = q(o * cellact(c_new))
+    return h_new, c_new
+
+
+def _forward(params: Params, x: Tensor, cfg: QLSTMConfig, fq: bool) -> Tensor:
+    """x: (batch, seq, input_size) -> (batch, out_features); the
+    reference's ``lax.scan`` over time is a loop here."""
+    h_t, h = x, None
     for p in params["layers"]:
-        h = torch.zeros(b, cfg.hidden_size, dtype=x.dtype, device=x.device)
+        h = torch.zeros(x.shape[0], cfg.hidden_size, dtype=x.dtype,
+                        device=x.device)
         c = torch.zeros_like(h)
         hs = []
-        for t in range(t_len):
-            pre = h_t[:, t] @ p["w_x"] + h @ p["w_h"] + p["b"]
-            i, f, g, o = torch.chunk(pre, 4, dim=-1)
-            i, f, o = gate(i), gate(f), gate(o)
-            c = f * c + i * cellact(g)
-            h = o * cellact(c)
+        for t in range(h_t.shape[1]):
+            h, c = _cell_step_float(p, h_t[:, t], h, c, cfg, fq)
             hs.append(h)
         h_t = torch.stack(hs, dim=1)
-    return h @ params["dense"]["w"] + params["dense"]["b"]
+    q = (lambda t: fxp.fake_quant(t, cfg.fxp)) if fq else (lambda t: t)
+    return q(h @ q(params["dense"]["w"]) + params["dense"]["b"])
+
+
+def forward_float(params: Params, x: Tensor, cfg: QLSTMConfig) -> Tensor:
+    """x: (batch, seq, input_size) float -> (batch, out_features)."""
+    return _forward(params, x, cfg, fq=False)
+
+
+def forward_qat(params: Params, x: Tensor, cfg: QLSTMConfig) -> Tensor:
+    """The fake-quant graph QAT trains (same shapes as ``forward_float``)."""
+    return _forward(params, x, cfg, fq=True)
 
 
 # ---------------------------------------------------------------------------

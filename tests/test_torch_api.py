@@ -269,7 +269,7 @@ def test_int_path_requires_quantize_and_known_path():
     with pytest.raises(RuntimeError, match="quantize"):
         ts.infer(_x(), path="int")
     with pytest.raises(ValueError, match="path"):
-        ts.infer(_x(), path="qat")
+        ts.infer(_x(), path="fixed")
 
 
 def test_build_runs_on_cuda_unless_asked(monkeypatch):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's LSTM kernels (K1-K3) and the RG-LRU scan (K7) of one
-or more checkouts on one CUDA card, in the order given.
+"""Time the port's LSTM kernels (K1-K3), HardSigmoid* ``step`` (K5) and
+the RG-LRU scan (K7) of one or more checkouts on one CUDA card, in the
+order given.
 
     python3 tools/kernel_ab.py TREE [TREE ...]
 
@@ -10,8 +11,8 @@ on one card.  Every tree runs in its own Python process, which imports
 ``repro_torch`` from ``TREE/src`` and builds that tree's kernels into
 ``TREE/build``.  Each process prints one JSON line: the card's name and
 power limit, then for every case the kernel alone (``kernel_ms``, the
-profiler's device time of the kernels whose name holds ``qlstm`` or
-``rglru``, 50 calls), everything the wrapper enqueues (``ms``, one call
+profiler's device time of the kernels whose name holds ``qlstm``,
+``hard_act``, ``hact`` or ``rglru``, 50 calls), everything the wrapper enqueues (``ms``, one call
 replayed from a CUDA graph, 500 calls) and one eager call (``call_ms``,
 CUDA events, 500 calls).
 
@@ -19,7 +20,8 @@ Cases, at the shapes of ``chip_smoke.py``: K1 (``qlstm_seq_multilayer``)
 and K2 (``qlstm_seq``) at T=6, B=256, M=1, H=20, L=1, (4,8) codes, the
 ``step`` HardSigmoid*; K3 (``qlstm_seq_slot``) at B=64 against a (1026,
 1, 2, 20) table, also at T=1 and with the weights read from device
-memory (``weights_in_smem=False``); K7 (``rglru_seq``) at (4096, 2, 2560)
+memory (``weights_in_smem=False``); K5 (``hard_sigmoid_star``, the
+``step`` method) on (2048, 2816) int8 (4,8) codes in [-64, 64); K7 (``rglru_seq``) at (4096, 2, 2560)
 f32 on (T, B, W) views of (B, T, W) tensors, and, where the tree has a
 second route, the same inputs forced onto it.  Inputs are random codes
 and normals from numpy seed 0.  Exits 2 without a CUDA card.
@@ -70,7 +72,7 @@ def _kernel_ms(torch, fn):
     names = set()
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and (
-                "qlstm" in e.key or "rglru" in e.key):
+                any(k in e.key for k in ("qlstm", "hard_act", "hact", "rglru"))):
             total += float(getattr(e, "self_device_time_total",
                                    getattr(e, "self_cuda_time_total", 0.0)))
             names.add(e.key)
@@ -83,6 +85,7 @@ def measure(tree: Path) -> dict:
     import torch
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.core import fixed_point as fxp
+    from repro_torch.kernels import hard_act as ha
     from repro_torch.kernels import qlstm_cell as qc
     from repro_torch.kernels import rglru_scan as rg
 
@@ -113,6 +116,7 @@ def measure(tree: Path) -> dict:
     bb = torch.as_tensor(rng.normal(0, 1, (2, 4096, 2560)), dtype=torch.float32,
                          device=dev)
     la_v, b_v = la.transpose(0, 1), bb.transpose(0, 1)
+    act_codes = codes((2048, 2816), -64, 64)
 
     cases = {
         "K1 multilayer B=256": lambda: qc.qlstm_seq_multilayer(
@@ -126,6 +130,8 @@ def measure(tree: Path) -> dict:
         "K3 slot B=64 T=6 weights in device memory": lambda: qc._launch(
             x64, [wx], [wh], [bias], gather=g, scatter=s, table=table,
             weights_in_smem=False, **slot_kw),
+        "K5 step (2048, 2816) int8": lambda: ha.hard_sigmoid_star(
+            act_codes, cfg=cfg, method="step"),
         "K7 rglru (4096, 2, 2560) f32 views": lambda: rg.rglru_seq(la_v, b_v),
     }
     if "route" in rg._launch.__code__.co_varnames:
