@@ -17,8 +17,10 @@ and a stateful ``StreamServer`` — at the full width of the paper's model
 widths, nothing cut (``configs/recurrentgemma_2b.py``: 26 layers, d_model
 and lru_width 2560, 10 heads of 256 on 1 KV head, window 2048, d_ff 7680,
 vocab 256,000; bf16 activations over f32 master params, random init from
-a ``torch.Generator`` seeded 0), and quantisation-aware training of the
-paper's model (``train_qat``) on the card, in phases:
+a ``torch.Generator`` seeded 0), quantisation-aware training of the
+paper's model (``train_qat``) on the card, and the serving tier (the
+seeded fault injector, the GRU and rGLRU cells, the four-replica
+cluster), in phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -69,7 +71,9 @@ paper's model (``train_qat``) on the card, in phases:
      of its marginal steps, and its probes at T = 1 and with the weights
      in device memory), the server's per-wave latency, the
      RecurrentGemma-2B prefill's wall time and device idle share, and its
-     decode tokens/s; HardSigmoid* ``step`` beside its earlier design (the
+     decode tokens/s; the same 128 x 6 traffic through ``build_cluster``
+     warm (1 replica at batch 16, 4 at batch 16 and at 64); HardSigmoid*
+     ``step`` beside its earlier design (the
      bisect route on the same codes) and ``arithmetic``/``1to1`` kernel
      alone; a ``train_qat`` step's wall time, device busy time and idle
      share;
@@ -89,7 +93,23 @@ paper's model (``train_qat``) on the card, in phases:
      ``AsyncCheckpointer`` save, and 5 more steps resumed from it; after
      training, ``infer(path="qat")`` within one LSB of the dequantised
      ``infer(path="int")`` (``tests/test_qlstm.py``'s bound) and the int
-     path through K1 equal to the ``ref`` engine.
+     path through K1 equal to the ``ref`` engine;
+  8. the serving tier at the paper's model: (a) the reference's fault
+     drill (``tests/test_resilience.py``'s acceptance scenario: 64
+     streams x 2 windows, ``wave_fault_rate=0.2``, seed 17) on a
+     device-resident server at batch 4 and 64 — every window answered,
+     equal to the ``ref`` engine, the injected counters in the metrics,
+     K3 launched once per attempt past the injector, and no plain engine
+     below the kernel; (b) state loss and corruption on the device store,
+     each lost carry's next window flagged ``state_reset`` as the replayed
+     schedule says, every other row bit for bit up to its fault; (c) the
+     GRU and rGLRU cells (no kernel: the ``xla`` engine on the card) on
+     256 windows, equal to their ``ref`` engine and to the CPU, and their
+     ``StreamServer`` carries at both residencies; (d) ``build_cluster``
+     with four replicas on the card, 128 streams x 6 windows, each row
+     equal to the ``ref`` engine and on the replica ``HashRing`` names, K1
+     on each replica's ``infer``, then r3 drained (a warm handoff, bit
+     for bit) and r2 abandoned (its streams flagged ``state_reset``).
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -760,6 +780,343 @@ def phase7_train(repro_torch, model, accel, mods, dev, card):
     return launches
 
 
+def stream_windows(n_streams, k, seed, T, M):
+    """(n_streams, k, T, M) float windows, stream i from seed + i (the
+    reference's chaos windows: uniform in [0, 1))."""
+    return np.stack([np.random.default_rng(seed + i).uniform(
+        0.0, 1.0, (k, T, M)).astype(np.float32) for i in range(n_streams)])
+
+
+def ref_rows(session, xs):
+    """{(stream id, window): y} of each stream run window by window through
+    the session's ``ref`` engine — the concatenated-sequence oracle."""
+    fn = session.compiled_stateful("ref")
+    state, out = session.init_state(xs.shape[0]), {}
+    for w in range(xs.shape[1]):
+        y, state = fn(xs[:, w], state)
+        y = y.cpu().numpy()
+        for i in range(xs.shape[0]):
+            out[(f"s{i}", w)] = y[i]
+    return out
+
+
+def serve_all(server, xs, windows):
+    """Submit ``windows`` of every stream (window-major), drain, and
+    return {(stream id, seq): row}."""
+    for w in windows:
+        for i in range(xs.shape[0]):
+            server.submit(f"s{i}", xs[i, w])
+    return {(r.stream_id, r.seq): r for r in server.drain(timeout=300)}
+
+
+def phase8_fault_drill(session, mods, batch):
+    """The reference's acceptance drill (``tests/test_resilience.py``):
+    64 streams x 2 windows through the fused engine at a 20% per-attempt
+    wave-fault rate, seed 17, on a device-resident server.  On the card
+    the ladder is the kernel alone, so a fault is retried, never
+    degraded: every window comes back ok and equal to the ``ref`` engine,
+    or as a counted error row."""
+    from repro_torch.serving import (FaultInjector, ResiliencePolicy,
+                                     ServingConfig, StreamServer)
+    m = session.model
+    xs = stream_windows(64, 2, 50, m.seq_len, m.input_size)
+    oracle = ref_rows(session, xs)
+    inj = FaultInjector(seed=17, wave_fault_rate=0.2)
+    # deadline_s=None: waves form full or at drain, so the wave
+    # composition, and with it the seeded schedule, is the same every run.
+    cfg = ServingConfig(batch=batch, backend="pallas", deadline_s=None,
+                        resilience=ResiliencePolicy(max_retries=3,
+                                                    backoff_base_s=0.0))
+    reset_counts(mods)
+    with StreamServer(session, cfg, fault_injector=inj) as srv:
+        check(srv.state_residency == "device", "drill residency not device")
+        check(srv.health()["ladder"] == ["pallas"],
+              f"a plain engine stands below the kernel: {srv.health()['ladder']}")
+        rows = serve_all(srv, xs, range(2))
+        summary = srv.metrics_summary()
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    stats, f = inj.stats(), summary["faults"]
+    check(len(rows) == 128, f"drill answered {len(rows)} of 128 windows")
+    check(f["injected"] == stats, f"injected {f['injected']} != {stats}")
+    errors = 0
+    for i in range(64):
+        sid = f"s{i}"
+        got = [rows[(sid, q)] for q in range(2)]
+        flagged = [q for q, r in enumerate(got) if not r.ok or r.state_reset]
+        first = flagged[0] if flagged else 2
+        for q in range(first):
+            check(got[q].backend == "pallas" and
+                  np.array_equal(got[q].y, oracle[(sid, q)]),
+                  f"drill stream {sid} window {q} differs from the ref engine")
+        for r in got:
+            if not r.ok:
+                errors += 1
+                check(r.y is None and r.error.startswith("compute_failed"),
+                      f"an error row carries a prediction: {r}")
+    check(f["stream_errors"] == errors == 0,
+          f"{errors} windows failed every attempt ({f['stream_errors']} counted)")
+    if stats["wave_faults"]:
+        check(f["retries"] >= 1, "faults were injected but nothing retried")
+    check(f["degradations"] == 0, "the drill degraded off the kernel")
+    passed = stats["attempts"] - stats["wave_faults"]
+    check(launches == {**{k: 0 for k in launches}, "slot": passed},
+          f"launches {launches} for {passed} attempts past the injector")
+    return launches, stats, summary
+
+
+def phase8_state_faults(session, mods):
+    """State loss and corruption against one device store: 64 streams x 4
+    windows at batch 64 (one wave a window, streams in order), so the
+    seeded schedule replays on the host draw for draw.  A lost carry's
+    next window is flagged ``state_reset``; corrupted streams are
+    recorded; every stream in neither set stays bit for bit, the others
+    up to the window their fault landed after."""
+    from repro_torch.serving import (FaultInjector, ResiliencePolicy,
+                                     ServingConfig, StreamServer)
+    m = session.model
+    n, k = 64, 4
+    rates = dict(state_loss_rate=0.15, state_corrupt_rate=0.15)
+    xs = stream_windows(n, k, 300, m.seq_len, m.input_size)
+    oracle = ref_rows(session, xs)
+    inj = FaultInjector(seed=3, **rates)
+    cfg = ServingConfig(batch=n, backend="pallas", deadline_s=None,
+                        resilience=ResiliencePolicy(max_retries=3,
+                                                    backoff_base_s=0.0))
+    reset_counts(mods)
+    with StreamServer(session, cfg, fault_injector=inj) as srv:
+        check(srv.state_residency == "device", "state drill not on the device")
+        rows = serve_all(srv, xs, range(k))
+        summary = srv.metrics_summary()
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    replay = FaultInjector(seed=3, **rates)
+    expect_reset, first_fault = set(), {}
+    for w in range(k):
+        for i in range(n):
+            fault = replay.draw_put_fault(f"s{i}")
+            if fault != "none":
+                first_fault.setdefault(f"s{i}", w)
+            if fault == "lose" and w + 1 < k:
+                expect_reset.add((f"s{i}", w + 1))
+    puts = lambda st: (st["state_losses"], st["state_corruptions"])
+    check(puts(replay.stats()) == puts(inj.stats()),
+          f"schedule {inj.stats()} != replay {replay.stats()}")
+    check(replay.lost_streams == inj.lost_streams
+          and replay.corrupted_streams == inj.corrupted_streams,
+          "lost/corrupted streams differ from the replayed schedule")
+    check(inj.lost_streams and inj.corrupted_streams, "the drill hit nothing")
+    for (sid, q), r in rows.items():
+        check(r.ok, f"{sid} window {q} failed")
+        check(r.state_reset == ((sid, q) in expect_reset),
+              f"{sid} window {q}: state_reset {r.state_reset}")
+        if q <= first_fault.get(sid, k):
+            check(np.array_equal(r.y, oracle[(sid, q)]),
+                  f"{sid} window {q} differs from the ref engine")
+    t = summary["state_transfer"]
+    check(t["to_device_bytes"] == 0 and t["from_device_bytes"] == 0,
+          f"carries crossed to the host: {t}")
+    check(launches == {**{kk: 0 for kk in launches}, "slot": summary["waves"]},
+          f"launches {launches} for {summary['waves']} waves")
+    return launches, inj
+
+
+def phase8_cells(repro_torch, model, accel, mods):
+    """GRU and rGLRU at the paper's width: no fused kernel (the reference
+    has none), so the ``xla`` engine's torch ops run on the card; bit for
+    bit with the same session's ``ref`` engine, with the port's CPU run
+    from the same seed, and with their concatenated runs through a
+    ``StreamServer`` at both residencies."""
+    import dataclasses
+    from repro_torch.serving import StreamServer
+    out = {}
+    for cell in ("gru", "rglru"):
+        m = dataclasses.replace(model, cell=cell)
+        s = repro_torch.build(m, accel, seed=0).quantize()
+        cpu = repro_torch.build(m, accel, seed=0, device="cpu").quantize()
+        check(s.plan["backend"] == "xla", f"{cell} plan {s.plan['backend']}")
+        check(s.degradation_ladder() == ("xla", "ref"),
+              f"{cell} ladder {s.degradation_ladder()}")
+        x = (np.random.default_rng(11).normal(0.0, 1.0, (256, m.seq_len,
+                                                         m.input_size))
+             * 0.7).astype(np.float32)
+        reset_counts(mods)
+        y = s.infer(x, path="int")
+        torch.cuda.synchronize()
+        launches = read_counts(mods)
+        check(not any(launches.values()), f"{cell} launched {launches}")
+        check(y.device.type == "cuda" and bool(torch.isfinite(y).all()),
+              f"{cell} output not finite on the card")
+        check(torch.equal(y, s.infer(x, path="int", backend="ref")),
+              f"{cell}: xla differs from ref on the card")
+        check(np.array_equal(y.cpu().numpy(), cpu.infer(x, path="int").numpy()),
+              f"{cell}: the card differs from the CPU")
+        xs = stream_windows(32, 3, 700, m.seq_len, m.input_size)
+        want = s.infer(xs.reshape(32, -1, m.input_size), path="int",
+                       backend="ref").cpu().numpy()
+        for residency in ("host", "device"):
+            with StreamServer(s, batch=16, deadline_s=0.005,
+                              state_residency=residency) as srv:
+                check(srv.state_residency == residency, f"{cell} {residency}")
+                rows = serve_all(srv, xs, range(3))
+            for i in range(32):
+                r = rows[(f"s{i}", 2)]
+                check(r.ok and not r.state_reset and r.backend == "xla"
+                      and np.array_equal(r.y, want[i]),
+                      f"{cell} {residency}: stream s{i} differs from its "
+                      f"concatenated run")
+        out[cell] = float(np.abs(y.cpu().numpy()).sum())
+        check(out[cell] > 0, f"{cell}: all outputs are zero")
+    return out
+
+
+def phase8_cluster(repro_torch, session, mods, card):
+    """``build_cluster(session, 4)`` on the one card: 128 streams x 6
+    windows, every row equal to the ``ref`` engine on its stream's
+    concatenated sequence and served by the replica the hash ring names;
+    K1 on each replica's ``infer``; then a planned drain of r3 (a warm
+    handoff of its streams' carries, bit for bit) and an abandoned r2
+    (its streams restart flagged ``state_reset``)."""
+    from repro_torch.serving import HashRing
+    m = session.model
+    n, k = 128, 6
+    xs = stream_windows(n, k + 2, 900, m.seq_len, m.input_size)
+    oracle = ref_rows(session, xs)
+    ring = HashRing([f"r{i}" for i in range(4)])
+    reps = session.replicate(4)
+    x = xs[:, 0]
+    want = session.infer(x, path="int")
+    reset_counts(mods)
+    for rep in reps:
+        check(rep.device == torch.device("cuda", 0), f"replica on {rep.device}")
+        check(torch.equal(rep.infer(x, path="int"), want),
+              "a replica differs from its session")
+    torch.cuda.synchronize()
+    infer_launches = read_counts(mods)
+    check(infer_launches == {**{kk: 0 for kk in infer_launches}, "multilayer": 4},
+          f"replica infers launched {infer_launches}")
+    cluster = repro_torch.build_cluster(session, 4, batch=16, deadline_s=0.005)
+    try:
+        check(all(srv.state_residency == "device"
+                  and srv.health()["ladder"] == ["pallas"]
+                  for srv in cluster._servers.values()),
+              "a replica is not device-resident on the kernel alone")
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        rows = serve_all(cluster, xs, range(k))
+        wall_s = time.perf_counter() - t0
+        summary = cluster.metrics_summary()
+        torch.cuda.synchronize()
+        serve_launches = read_counts(mods)
+        check(len(rows) == n * k, f"cluster answered {len(rows)} of {n * k}")
+        for (sid, q), r in rows.items():
+            check(r.ok and not r.state_reset and r.backend == "pallas",
+                  f"cluster row {sid}/{q} failed, reset or left the kernel")
+            check(r.routed_replica == ring.route(sid),
+                  f"{sid} served by {r.routed_replica}, ring says "
+                  f"{ring.route(sid)}")
+            check(np.array_equal(r.y, oracle[(sid, q)]),
+                  f"cluster row {sid}/{q} differs from the ref engine")
+        check(serve_launches == {**{kk: 0 for kk in serve_launches},
+                                 "slot": summary["waves"]},
+              f"launches {serve_launches} for {summary['waves']} waves")
+        per = {name: p["waves"] for name, p in summary["replicas"].items()}
+        log(f"phase 8d: build_cluster(session, 4) on cuda:0: {n} streams x {k} "
+            f"windows, batch 16, equal to the ref engine, each on its ring "
+            f"replica; waves (one K3 launch each) by replica {per}, K3 "
+            f"launches {serve_launches['slot']}; {summary['samples_per_s']:.3f} "
+            f"samples/s merged ({n * k / wall_s:.3f} by submit-to-drain wall), "
+            f"p50 {summary['latency_ms']['p50']:.6f} ms p99 "
+            f"{summary['latency_ms']['p99']:.6f} ms per wave; replica infers "
+            f"{infer_launches} on {card}")
+        # A planned drain: r3's carries are read back and seeded at their
+        # new ring homes, so their next window continues bit for bit.
+        sids = [f"s{i}" for i in range(n)]
+        homes = {sid: ring.route(sid) for sid in sids}
+        moved = cluster.remove_replica("r3")
+        check(sorted(moved) == sorted(s for s in sids if homes[s] == "r3"),
+              "remove_replica('r3') moved other streams than r3's")
+        ring.remove("r3")
+        rows = serve_all(cluster, xs, [k])
+        for sid in sids:
+            r = rows[(sid, 0 if sid in moved else k)]
+            check(r.ok and not r.state_reset
+                  and r.routed_replica == ring.route(sid)
+                  and np.array_equal(r.y, oracle[(sid, k)]),
+                  f"{sid} after r3's drain: not a bit-exact continuation")
+        # A dead replica: nothing to read back; its streams restart cold.
+        on_r2 = sorted(s for s in sids if ring.route(s) == "r2")
+        lost = cluster.remove_replica("r2", abandon=True)
+        check(sorted(lost) == on_r2, "remove_replica('r2') moved other streams")
+        ring.remove("r2")
+        fresh = session.infer(xs[:, k + 1], path="int",
+                              backend="ref").cpu().numpy()
+        rows = serve_all(cluster, xs, [k + 1])
+        for i, sid in enumerate(sids):
+            rs = [r for (s2, _), r in rows.items() if s2 == sid]
+            check(len(rs) == 1 and rs[0].ok, f"{sid}: {rs}")
+            r = rs[0]
+            if sid in lost:
+                check(r.seq == 0 and r.state_reset
+                      and np.array_equal(r.y, fresh[i]),
+                      f"{sid} after r2 died: not a flagged fresh start")
+            else:
+                check(not r.state_reset
+                      and np.array_equal(r.y, oracle[(sid, k + 1)]),
+                      f"{sid} after r2 died: its carry did not survive")
+        log(f"phase 8d: remove_replica('r3') moved {len(moved)} streams (r3's), "
+            f"each continuing bit for bit from its handed-off carry; "
+            f"remove_replica('r2', abandon=True) moved {len(lost)}, each "
+            f"restarting flagged state_reset; replicas left "
+            f"{cluster.replicas}")
+    finally:
+        check(cluster.close(timeout=60) == [], "cluster threads leaked")
+    torch.cuda.synchronize()
+    return {kk: infer_launches[kk] + serve_launches[kk] for kk in infer_launches}
+
+
+def phase8(repro_torch, session, model, accel, mods, card):
+    """Phase 8: the serving tier — the seeded fault drill at batch 4 and 64,
+    state faults on the device store, the GRU and rGLRU cells, and the
+    four-replica cluster.  Returns the launches of its main-path runs."""
+    totals = {}
+
+    def add(launches):
+        for kk, v in launches.items():
+            totals[kk] = totals.get(kk, 0) + v
+
+    for batch in (4, 64):
+        t0 = time.perf_counter()
+        launches, stats, summary = phase8_fault_drill(session, mods, batch)
+        add(launches)
+        log(f"phase 8a: fault drill, 64 streams x 2 windows, batch {batch}, "
+            f"wave_fault_rate 0.2 seed 17: injected {stats}; {summary['waves']} "
+            f"waves, retries {summary['faults']['retries']}, errors "
+            f"{summary['faults']['stream_errors']}; all 128 windows equal the "
+            f"ref engine; K3 launches {launches['slot']} = attempts past the "
+            f"injector; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, inj = phase8_state_faults(session, mods)
+    add(launches)
+    log(f"phase 8b: device store, state_loss_rate 0.15 + state_corrupt_rate "
+        f"0.15 seed 3, 64 streams x 4 windows: injected {inj.stats()}; lost "
+        f"{len(inj.lost_streams)}, corrupted {len(inj.corrupted_streams)} "
+        f"streams; every lost carry's next window flagged state_reset, the "
+        f"rest bit for bit; K3 launches {launches['slot']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sums = phase8_cells(repro_torch, model, accel, mods)
+    log(f"phase 8c: gru and rglru at H={model.hidden_size} L={model.num_layers} "
+        f"T={model.seq_len} {model.fxp}: infer on 256 windows on the card equals "
+        f"its ref engine and the CPU run bit for bit (sum |y| {sums}); "
+        f"StreamServer carries equal the concatenated runs at host and device "
+        f"residency; no kernel launched; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(phase8_cluster(repro_torch, session, mods, card))
+    log(f"phase 8d: done in {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -936,6 +1293,13 @@ def main() -> int:
                                      dev, card)
     log(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 8: the serving tier: faults, cells, cluster -------------------
+    t0 = time.perf_counter()
+    serving_launches = phase8(repro_torch, session, model, AcceleratorConfig(),
+                              mods, card)
+    log(f"phase 8: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{serving_launches}")
+
     # -- phase 5: timings ----------------------------------------------------
     sass = {op: sass_count(_build, name, op)
             for name, op in (("quant_matmul", "IMMA"), ("flash_attention", "HMMA"))}
@@ -970,7 +1334,8 @@ def main() -> int:
     k3_bytes = (x4.numel() + w_bytes + 2 * 64 * 4 + 2 * table.numel() * 4
                 + T * 64 * H)
     launches = {k: infer_launches[k] + serve_launches[k] + ops_launches[k]
-                + lm_launches[k] + train_launches[k] for k in infer_launches}
+                + lm_launches[k] + train_launches[k] + serving_launches.get(k, 0)
+                for k in infer_launches}
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
@@ -1178,6 +1543,28 @@ def main() -> int:
         f"{warm['latency_ms']['p99']:.6f} ms, compute mean "
         f"{warm['compute_ms_mean']:.6f} ms, {warm['samples_per_s']:.3f} "
         f"samples/s on {card}")
+    # The same traffic through build_cluster, warm: replicas x batch, to
+    # tell the cost of more replicas on one card from that of smaller waves.
+    for n_rep, batch in ((1, 16), (4, 16), (4, 64)):
+        cluster = repro_torch.build_cluster(session, n_rep, batch=batch,
+                                            deadline_s=0.005)
+        try:
+            cluster.warmup(xs[0, 0])
+            t0 = time.perf_counter()
+            for w in range(n_windows):
+                for i in range(n_streams):
+                    cluster.submit(f"s{i}", xs[i, w])
+            cluster.drain(timeout=600)
+            wall_s = time.perf_counter() - t0
+            cw = cluster.metrics_summary()
+        finally:
+            check(cluster.close(timeout=60) == [], "cluster threads leaked")
+        log(f"phase 5: cluster warm, {n_rep} replica(s) on the card, batch "
+            f"{batch}: {cw['waves']} waves, {cw['samples_per_s']:.3f} samples/s "
+            f"merged ({n_streams * n_windows / wall_s:.3f} by submit-to-drain "
+            f"wall), per-wave p50 {cw['latency_ms']['p50']:.6f} ms p99 "
+            f"{cw['latency_ms']['p99']:.6f} ms, compute mean "
+            f"{cw['compute_ms_mean']:.6f} ms on {card}")
 
     with torch.inference_mode():
         prefill = lambda: lm.forward_prefill(lm_params, {"tokens": lm_tokens}, lm_cfg)

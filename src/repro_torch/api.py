@@ -21,8 +21,10 @@ backend registry (``ref`` | ``pallas`` | ``xla``); torch runs eagerly, so
 the callables returned by ``compiled*`` are plain closures cached per
 engine.
 
-Not ported yet: ``replicate`` and ``build_cluster`` (cluster tier),
-``report`` and ``measure_scenario`` (energy and explorer slices).
+``replicate`` pins copies of a quantised session to devices, and
+``build_cluster`` puts them behind a ``serving.ClusterServer``.  Not
+ported yet: ``report`` and ``measure_scenario`` (energy and explorer
+slices).
 """
 
 from __future__ import annotations
@@ -66,6 +68,22 @@ def build(model: Optional[QLSTMConfig] = None,
     ``seed``.  ``device`` defaults to CUDA."""
     return Accelerator(model or QLSTMConfig(), accel or AcceleratorConfig(),
                        params=params, seed=seed, device=device)
+
+
+def build_cluster(session, n: int, *, devices=None, names=None, config=None,
+                  **overrides):
+    """A ready multi-replica serving cluster from one quantised session:
+    ``session.replicate(n)`` (per-device pinned copies) behind a
+    ``repro_torch.serving.ClusterServer`` consistent-hash front door.
+
+    ``devices`` pins explicit placement (``launch.mesh.serving_devices``
+    semantics); ``names`` labels the replicas on the ring; ``config`` /
+    keyword overrides set ``ClusterConfig`` and fall through to the
+    per-replica ``ServingConfig`` (``batch=``, ``deadline_s=``, ...)."""
+    from repro_torch.serving.cluster import ClusterServer
+
+    replicas = session.replicate(n, devices=devices)
+    return ClusterServer(replicas, config=config, names=names, **overrides)
 
 
 class Accelerator:
@@ -280,6 +298,33 @@ class Accelerator:
                                            override=backend,
                                            stateful=stateful,
                                            device=self.device)
+
+    def replicate(self, n: int, devices=None) -> "list[Accelerator]":
+        """``n`` device-pinned replica sessions of this (quantised)
+        accelerator — the per-replica substrate of the serving cluster.
+
+        Each replica shares this session's configuration and weights, with
+        its params AND integer codes moved to its own device
+        (``sharding.partition.pin_to_device``), so each replica's datapath
+        runs there and a stream's carry stays replica-local under
+        ``ClusterServer`` routing.  Devices come from
+        ``launch.mesh.serving_devices``: round-robin over the visible
+        devices of this session's type by default (one card's replicas
+        share it, as the CPU tests' share the CPU), or an explicit
+        ``devices`` list.  The codes are pinned, NOT re-quantised, so every
+        replica is bit-identical to this session."""
+        from repro_torch.launch.mesh import serving_devices
+        from repro_torch.sharding.partition import pin_to_device
+
+        self._require_quantized()
+        out = []
+        for d in serving_devices(n, devices, kind=self.device.type):
+            rep = Accelerator(self.model, self.accel,
+                              params=pin_to_device(self.params, d), device=d)
+            rep.qparams = pin_to_device(self.qparams, d)
+            rep.device = d
+            out.append(rep)
+        return out
 
     def _require_quantized(self):
         if self.qparams is None:

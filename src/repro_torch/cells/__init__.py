@@ -6,7 +6,19 @@ carry shape, the bit-exact integer datapath, the plain oracle, and an
 optional fused-kernel predicate.  Every downstream layer (backends,
 serving) dispatches through the spec.
 
-Registered cells: ``lstm`` only.  GRU and rGLRU wait for a later slice.
+Registered cells:
+
+  * ``lstm``  — the paper's quantised LSTM (``core.qlstm``): per-layer
+    (h, c) carry, fused CUDA kernels for the pipelined + hard-activation
+    point.
+  * ``gru``   — quantised GRU (``cells.gru``): per-layer (h,) carry, gate
+    order [r, z, n], the same S5 single-late-rounding contract.
+  * ``rglru`` — quantised RG-LRU (``cells.rglru``): input-only gates, a
+    ``1 - r*lambda`` decay and a convex ``a*h + (1-a)*(i*x)`` mix;
+    per-layer (h,) carry.
+
+GRU and rGLRU have no fused kernel (nor has the reference), so they run
+on the ``xla`` engine with ``ref`` below it.
 
 The per-layer integer carry is a tuple of ``state_arity`` int32 tensors
 of shape ``(batch, hidden)``; the whole-model state is a tuple of those
@@ -117,4 +129,6 @@ def init_state(model: QLSTMConfig, batch: int,
 
 
 # Importing the cell modules registers them.
-from repro_torch.cells import lstm as _lstm  # noqa: E402,F401
+from repro_torch.cells import gru as _gru      # noqa: E402,F401
+from repro_torch.cells import lstm as _lstm    # noqa: E402,F401
+from repro_torch.cells import rglru as _rglru  # noqa: E402,F401

@@ -73,7 +73,7 @@ class QLSTMConfig:
     fxp: FixedPointConfig = FXP_4_8   # DEPRECATED -> AcceleratorConfig.fxp
     alu_mode: str = "pipelined"   # DEPRECATED -> AcceleratorConfig.alu_mode
     # Which quantised recurrent cell the accelerator runs: an id in the
-    # ``repro_torch.cells`` registry (only "lstm" is ported).
+    # ``repro_torch.cells`` registry ("lstm", "gru", "rglru").
     cell: str = "lstm"
 
     def layer_in_dim(self, layer: int) -> int:
@@ -274,6 +274,15 @@ def elem_mul_round(a_int: Tensor, b_int: Tensor, cfg: QLSTMConfig) -> Tensor:
     fp = cfg.fxp
     prod = fxp.product_config(fp, fp)
     return fxp.requantize(fxp.fxp_mul(a_int, b_int, fp, fp), prod, fp)
+
+
+def wide_sum(*products) -> Tensor:
+    """Products of integer codes (tensors or Python ints), each an ``(a,
+    b)`` pair, summed at the wide precision and wrapped at int32 like the
+    reference's int32 arithmetic — the S5 combine before its one
+    rounding."""
+    i64 = lambda v: v.to(torch.int64) if isinstance(v, Tensor) else v
+    return fxp.wrap_int32(sum(i64(a) * i64(b) for a, b in products))
 
 
 def _cell_step_int(p, x_t, h, c, cfg: QLSTMConfig):

@@ -5,6 +5,9 @@
     specification the fused kernels (``kernels/qlstm_cell.py``) and the
     ``ref`` engine are held to.  Its integer products go through
     ``fixed_point.int_matmul`` (broadcast multiply, sum, narrow to int32).
+  * ``qgru_seq_ref`` / ``qrglru_seq_ref`` — the quantised GRU and RG-LRU
+    sequences, the oracles of ``cells/gru.py`` and ``cells/rglru.py`` (no
+    kernel computes these: the reference has none).
   * ``quant_matmul_ref`` / ``quant_matmul_requant_ref`` — the integer
     GEMM with XLA's int32 accumulator, exact at any width (see
     :func:`int_matmul_exact`), and its fused S5 requantisation.
@@ -108,6 +111,123 @@ def qlstm_seq_ref(x_int: Tensor, w_x: Tensor, w_h: Tensor, b_wide: Tensor,
     if return_state:
         return out, (h, c)
     return out
+
+
+def _wide(*products) -> Tensor:
+    """Sum of integer products at the wide precision, wrapping at int32 as
+    the reference's int32 arithmetic does: each product is an ``(a, b)``
+    pair of code tensors or Python ints."""
+    i64 = lambda v: v.to(torch.int64) if isinstance(v, Tensor) else v
+    return fxp.wrap_int32(sum(i64(a) * i64(b) for a, b in products))
+
+
+def _seq_carry(h0: Optional[Tensor], bsz: int, hdim: int,
+               device: torch.device) -> Tensor:
+    if h0 is None:
+        return torch.zeros(bsz, hdim, dtype=torch.int32, device=device)
+    return h0.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# quantised GRU oracle (cells/gru.py general datapath must match bit-exact)
+# ---------------------------------------------------------------------------
+
+def qgru_seq_ref(x_int: Tensor, w_x: Tensor, w_h: Tensor, b_wide: Tensor,
+                 cfg: FixedPointConfig,
+                 hs_slope_shift: int = 3, hs_bound: float = 3.0,
+                 ht_min: float = -1.0, ht_max: float = 1.0,
+                 h0: Optional[Tensor] = None):
+    """Time-major quantised GRU sequence — pipelined datapath, hard acts.
+
+    x_int: (T, B, M) integer codes in cfg; w_x: (M, 3H), w_h: (H, 3H)
+    codes, gate order [r, z, n]; b_wide: (3H,) int32 codes at the product
+    precision; h0: optional (B, H) int32 carry (zeros when omitted).
+
+    The candidate's recurrent half ``h W_hn`` exits its own accumulator
+    (one S5 rounding), is gated by ``r`` back to the wide format, added to
+    the 1.0-lifted ``x W_xn + b_n`` half, and rounded once; the state mix
+    ``(1-z)*n + z*h`` likewise rounds once.  Returns ``((T, B, H) int32
+    hidden codes, h_last)``."""
+    prod = fxp.product_config(cfg, cfg)
+    spec = hard_act.HardSigmoidStarSpec(cfg, hs_slope_shift, hs_bound)
+    t_len, bsz, _ = x_int.shape
+    hdim = w_h.shape[0]
+    one = 1 << cfg.frac_bits
+    b64 = b_wide.to(torch.int64)
+    h = _seq_carry(h0, bsz, hdim, x_int.device)
+    hs = []
+    for t in range(t_len):
+        x_t = x_int[t]
+        rz_acc = fxp.wrap_int32(
+            fxp.int_matmul(x_t, w_x[:, :2 * hdim]).to(torch.int64)
+            + fxp.int_matmul(h, w_h[:, :2 * hdim]).to(torch.int64)
+            + b64[:2 * hdim])
+        rz = fxp.requantize(rz_acc, prod, cfg)
+        r = hard_act.hs_star_int_arithmetic(rz[:, :hdim], spec)
+        z = hard_act.hs_star_int_arithmetic(rz[:, hdim:], spec)
+        nh = fxp.requantize(fxp.int_matmul(h, w_h[:, 2 * hdim:]), prod, cfg)
+        nx = fxp.requantize(fxp.wrap_int32(
+            fxp.int_matmul(x_t, w_x[:, 2 * hdim:]).to(torch.int64)
+            + b64[2 * hdim:]), prod, cfg)
+        n_pre = fxp.requantize(_wide((nx, one), (r, nh)), prod, cfg)
+        n = hard_act.hard_tanh_int(n_pre, cfg, ht_min, ht_max)
+        h = fxp.requantize(_wide((one - z, n), (z, h)), prod, cfg)
+        hs.append(h)
+    return torch.stack(hs), h
+
+
+# ---------------------------------------------------------------------------
+# quantised RG-LRU oracle (cells/rglru.py general datapath, bit-exact)
+# ---------------------------------------------------------------------------
+
+def qrglru_seq_ref(x_int: Tensor, w_x: Tensor, w_a: Tensor, w_i: Tensor,
+                   b_x: Tensor, b_a: Tensor, b_i: Tensor, lam_q: Tensor,
+                   cfg: FixedPointConfig,
+                   hs_slope_shift: int = 3, hs_bound: float = 3.0,
+                   h0: Optional[Tensor] = None):
+    """Time-major quantised RG-LRU sequence — pipelined datapath, hard acts.
+
+    x_int: (T, B, M) codes in cfg; w_x/w_a/w_i: (M, H) codes (value,
+    recurrence-gate, input-gate paths); b_x/b_a/b_i: (H,) int32 codes at
+    the product precision; lam_q: (H,) codes in cfg — the pre-gated decay
+    ``quantize(gate(lambda))``, baked at quantisation time; h0: optional
+    (B, H) int32 carry (zeros when omitted).
+
+    The fixed-point redefinition of Griffin's recurrence (input-only
+    gates, ``a = 1 - r*lambda`` decay, convex ``a*h + (1-a)*(i*x)`` mix)::
+
+        xp = S5( x W_x + b_x )
+        r  = gate( S5( x W_a + b_a ) )
+        i  = gate( S5( x W_i + b_i ) )
+        a  = 1 - S5( r * lam_q )
+        gx = S5( i * xp )
+        h' = S5( a*h + (1-a)*gx )
+
+    Returns ``((T, B, H) int32 hidden codes, h_last)``."""
+    prod = fxp.product_config(cfg, cfg)
+    spec = hard_act.HardSigmoidStarSpec(cfg, hs_slope_shift, hs_bound)
+    t_len, bsz, _ = x_int.shape
+    hdim = w_x.shape[1]
+    one = 1 << cfg.frac_bits
+    lam32 = lam_q.to(torch.int32)
+
+    def s5(x_t, w, b):
+        return fxp.requantize(fxp.wrap_int32(
+            fxp.int_matmul(x_t, w).to(torch.int64) + b.to(torch.int64)),
+            prod, cfg)
+
+    h = _seq_carry(h0, bsz, hdim, x_int.device)
+    hs = []
+    for t in range(t_len):
+        x_t = x_int[t]
+        xp = s5(x_t, w_x, b_x)
+        r = hard_act.hs_star_int_arithmetic(s5(x_t, w_a, b_a), spec)
+        i = hard_act.hs_star_int_arithmetic(s5(x_t, w_i, b_i), spec)
+        a = one - fxp.requantize(_wide((r, lam32)), prod, cfg)
+        gx = fxp.requantize(_wide((i, xp)), prod, cfg)
+        h = fxp.requantize(_wide((a, h), (one - a, gx)), prod, cfg)
+        hs.append(h)
+    return torch.stack(hs), h
 
 
 # ---------------------------------------------------------------------------

@@ -8,13 +8,19 @@ scatters to), waves double-buffered against device compute, tail latency
 bounded by a deadline, and guarded execution down the bit-identical
 engine ladder.
 
-Not ported yet: the seeded fault injector (``faults``), the cluster tier
-(``cluster``, ``routing``).
+Scale-out: :class:`ClusterServer` puts N replica servers behind a
+consistent-hash front door (:class:`HashRing`), so each stream's carry
+stays on one replica.  Chaos drills: a seeded :class:`FaultInjector`
+wraps the execute path and the state store.
 """
 
+from repro_torch.serving.cluster import ClusterConfig, ClusterServer  # noqa: F401
 from repro_torch.serving.device_state import (DeviceStateStore,  # noqa: F401
                                               SlotAllocator)
+from repro_torch.serving.faults import (FaultConfig, FaultInjector,  # noqa: F401
+                                        InjectedFault)
 from repro_torch.serving.metrics import MetricsSink, WaveRecord  # noqa: F401
+from repro_torch.serving.routing import HashRing                # noqa: F401
 from repro_torch.serving.resilience import (ExecutionGuard,      # noqa: F401
                                             GuardOutcome, ResiliencePolicy,
                                             WaveTimeout)
@@ -26,9 +32,10 @@ from repro_torch.serving.server import (ServingConfig, StreamResult,  # noqa: F4
 from repro_torch.serving.state import StateStore, StreamState    # noqa: F401
 
 __all__ = [
-    "DeviceStateStore", "ExecutionGuard", "GuardOutcome", "MetricsSink",
-    "OverloadPolicy", "ResiliencePolicy", "ServerOverloaded",
-    "ServingConfig", "SlotAllocator", "StateStore", "StreamResult",
-    "StreamServer", "StreamState", "Wave", "WaveRecord", "WaveScheduler",
-    "WaveTimeout", "serve_windows",
+    "ClusterConfig", "ClusterServer", "DeviceStateStore", "ExecutionGuard",
+    "FaultConfig", "FaultInjector", "GuardOutcome", "HashRing",
+    "InjectedFault", "MetricsSink", "OverloadPolicy", "ResiliencePolicy",
+    "ServerOverloaded", "ServingConfig", "SlotAllocator", "StateStore",
+    "StreamResult", "StreamServer", "StreamState", "Wave", "WaveRecord",
+    "WaveScheduler", "WaveTimeout", "serve_windows",
 ]

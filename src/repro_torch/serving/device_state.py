@@ -36,8 +36,8 @@ scatter.
 
 The only time a carry crosses back to the host is PLANNED stream
 movement: :meth:`DeviceStateStore.read_state` /
-:meth:`DeviceStateStore.seed_state` (the reference's cluster tier uses
-them to hand a draining replica's streams to their new homes warm).
+:meth:`DeviceStateStore.seed_state` (``serving/cluster.py`` uses them to
+hand a draining replica's streams to their new homes warm).
 """
 
 from __future__ import annotations
@@ -244,6 +244,26 @@ class DeviceStateStore:
             table[slot] = torch.as_tensor(row, device=table.device)
             self.table = table
         return evicted
+
+    # -- fault-injection surface ---------------------------------------------
+
+    def corrupt_slot(self, stream_id: Hashable) -> bool:
+        """XOR the low bit of every code in the stream's table row — the
+        device form of the host store's put-corruption (same perturbation
+        as ``FaultInjector._mutate_put``), on the table's device.  Returns
+        False for an unknown stream (nothing to corrupt).
+
+        The one write into a live table outside :meth:`commit`, made under
+        the lock.  It is safe in place: the slot datapath is functional
+        (every wave, retries and abandoned attempts included, reads the
+        table it was handed and returns a new one), so no attempt still in
+        flight reads the table committed after it."""
+        with self._lock:
+            slot = self._alloc.slot_of(stream_id)
+            if slot is None:
+                return False
+            self.table[slot].bitwise_xor_(1)
+            return True
 
     # -- StateStore-compatible reporting ------------------------------------
 

@@ -43,9 +43,10 @@ That is correct only because a multi-session server's carry lives
 host-side in the shared ``StateStore`` — every session reads the same
 store, so which session computed window *k* does not matter for window
 *k+1*.  Device residency therefore requires a SINGLE session (one table
-on one device; ``auto`` falls back to host for replicas).  The cluster
-tier that shards device-resident state across replicas, and the seeded
-fault injector, are not ported yet.
+on one device; ``auto`` falls back to host for replicas): to scale
+device-resident state across replicas use
+``repro_torch.serving.cluster.ClusterServer``, which pins every stream to
+exactly one replica by consistent hash so its carry stays replica-local.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from typing import (Dict, Hashable, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.metrics import MetricsSink, WaveRecord
 from repro_torch.serving.resilience import ExecutionGuard, ResiliencePolicy
 from repro_torch.serving.scheduler import (OverloadPolicy, Slot, Wave,
@@ -209,11 +211,14 @@ class StreamServer:
     and dropped — they are never emitted and never touch the state store."""
 
     def __init__(self, sessions, config: Optional[ServingConfig] = None,
+                 fault_injector: Optional[FaultInjector] = None,
                  **overrides):
         """``sessions``: one ``Accelerator`` or a list of replicas of the
         same configuration (waves round-robin across them).  ``config`` or
         keyword overrides (``batch=``, ``deadline_s=``, ...) set the
-        :class:`ServingConfig`."""
+        :class:`ServingConfig`.  ``fault_injector`` (tests/chaos drills
+        only) wraps the execute path and the state store with a seeded
+        fault schedule — see ``repro_torch.serving.faults``."""
         sessions = list(sessions) if isinstance(sessions, (list, tuple)) \
             else [sessions]
         if not sessions:
@@ -235,6 +240,7 @@ class StreamServer:
             cfg = dataclasses.replace(cfg, **overrides)
         self.config = cfg
         self._sessions = sessions
+        self.fault_injector = fault_injector
         # Resolve the degradation ladder and build/validate NOW: a bad
         # path/backend, an unquantised session or a kernel that cannot be
         # built fails at construction, not in the compute thread.  On a
@@ -283,14 +289,23 @@ class StreamServer:
             ladder = (cfg.path,)
             self._fns = [[(cfg.path, s.compiled(cfg.path, cfg.backend))]
                          for s in sessions]
+        if fault_injector is not None:
+            self._fns = [[(n, fault_injector.wrap_fn(fn, label=n))
+                          for n, fn in per_session]
+                         for per_session in self._fns]
         self.guard = ExecutionGuard(ladder, cfg.resilience)
         if not cfg.stateful:
             self.states = None
         elif self.state_residency == "device":
             from repro_torch.serving.device_state import DeviceStateStore
             self.states = DeviceStateStore(sessions[0], cfg.max_streams)
+            if fault_injector is not None:
+                self.states = fault_injector.wrap_device_state_store(
+                    self.states)
         else:
             self.states = StateStore(cfg.max_streams)
+            if fault_injector is not None:
+                self.states = fault_injector.wrap_state_store(self.states)
         self.metrics = MetricsSink()
         self._results: "queue.Queue" = queue.Queue(
             maxsize=cfg.max_results or 0)
@@ -551,6 +566,8 @@ class StreamServer:
             "deadline_miss_rate": sched["deadline_miss_rate"],
             "state_resets": counters.get("state_resets", 0),
             "stream_errors": counters.get("stream_errors", 0),
+            "injected": (self.fault_injector.stats()
+                         if self.fault_injector is not None else None),
         }
         # Per-wave host<->device state traffic: the device-residency win is
         # to_device/from_device pinned at 0 while only slot ids travel.
@@ -627,6 +644,12 @@ class StreamServer:
             # corrupt the allocator<->table correspondence.
             g, s, reset, rows, evicted = self._gather_slots(wave)
             self.metrics.count("slot_id_bytes", int(g.nbytes + s.nbytes))
+            # The slot datapath is functional: it reads the committed table
+            # and returns a new one, never writing the live table.  That is
+            # what makes an attempt the guard abandoned at its timeout safe
+            # (its kernel may still run beside the retry on CUDA) and what
+            # lets the fault injector's corrupt_slot write the committed
+            # table in place.
             outcome = self.guard.run(fns, x, self.states.table,
                                      torch.as_tensor(g, device=device),
                                      torch.as_tensor(s, device=device))
@@ -769,7 +792,7 @@ class StreamServer:
         The two phases replay the host path's store-op order — every
         lookup (get), then every assignment (put) in batch-row order — so
         hit/miss/eviction counters and any injected fault schedule match
-        the host store's counters match draw for draw."""
+        the host store's, draw for draw."""
         store = self.states
         batch = self.config.batch
         g = np.full(batch, store.zero_slot, dtype=np.int32)

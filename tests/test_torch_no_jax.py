@@ -47,11 +47,20 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.kernels.quant_matmul\n"
             "import repro_torch.kernels.hard_act\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.serving.cluster, repro_torch.serving.faults\n"
+            "import repro_torch.serving.routing, repro_torch.cells.gru\n"
+            "import repro_torch.cells.rglru, repro_torch.launch.mesh\n"
+            "import repro_torch.sharding.partition\n"
             "import torch\n"
             "from repro_torch.core.fixed_point import FXP_4_8\n"
             "from repro_torch.kernels import ops\n"
             "s = repro_torch.build(device='cpu').quantize()\n"
             "print(tuple(s.infer([[[0.5]] * 6], path='int').shape))\n"
+            "g = repro_torch.build(repro_torch.QLSTMConfig(cell='gru'),\n"
+            "                      device='cpu').quantize()\n"
+            "c = repro_torch.build_cluster(g, 2)\n"
+            "print(c.replica_for('s0'))\n"
+            "c.close(timeout=30)\n"
             "x = torch.ones(3, 4, dtype=torch.int8)\n"
             "y = ops.quant_matmul_requant(x, x.T.contiguous(), FXP_4_8)\n"
             "print(ops.hard_sigmoid_star_int(y, FXP_4_8, 'step').tolist())\n"
@@ -67,4 +76,5 @@ def test_port_imports_with_jax_and_reference_blocked():
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines() == [
-        "(1, 1)", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]", "(2, 1, 128) True"]
+        "(1, 1)", "r1", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]",
+        "(2, 1, 128) True"]
