@@ -18,9 +18,9 @@ widths, nothing cut (``configs/recurrentgemma_2b.py``: 26 layers, d_model
 and lru_width 2560, 10 heads of 256 on 1 KV head, window 2048, d_ff 7680,
 vocab 256,000; bf16 activations over f32 master params, random init from
 a ``torch.Generator`` seeded 0), quantisation-aware training of the
-paper's model (``train_qat``) on the card, and the serving tier (the
+paper's model (``train_qat``) on the card, the serving tier (the
 seeded fault injector, the GRU and rGLRU cells, the four-replica
-cluster), in phases:
+cluster), and the explorer with the energy model, in phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -109,7 +109,24 @@ cluster), in phases:
      with four replicas on the card, 128 streams x 6 windows, each row
      equal to the ``ref`` engine and on the replica ``HashRing`` names, K1
      on each replica's ``infer``, then r3 drained (a warm handoff, bit
-     for bit) and r2 abandoned (its streams flagged ``state_reset``).
+     for bit) and r2 abandoned (its streams flagged ``state_reset``);
+  9. the explorer and the energy model at the paper's model: (a)
+     ``explore.sweep(paper_space(batch=256))`` on the card (24 points:
+     both formats, three HardSigmoid* methods, both compute units, both
+     ALU modes), each row's wave time, samples/s and modelled GOP/s/W,
+     every pipelined point's int path equal to its ``ref`` engine and
+     every per_step point's to the CPU's on the sweep's windows, K1
+     launched 21 times per fused point, and one fused point's wave under
+     the profiler; (b) a serving halving sweep (host/device residency x
+     batch 16/64) on phase 4's traffic, ``autotune`` on its payload, and
+     the winner re-measured by ``measure_scenario`` within its SLO, K3 (or
+     K1 for host residency) launched once per wave plus the warm-up; (c)
+     the board's power (``nvidia-smi -lms 100``): idle, under K1 ``infer``
+     at batch 256 beside the model's ``total_w`` and the measured GOP/s/W,
+     and the sustained loops whose fits are ``core/energy.py``'s constants
+     (K6 on 1 GiB, K1 at a batch of 2^20, K4 and a bf16 ``torch.matmul``
+     on 8192^3 products; 9c's loops are measurements and stay out of the
+     launch counts).
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -1117,6 +1134,289 @@ def phase8(repro_torch, session, model, accel, mods, card):
     return totals
 
 
+def phase9_sweep(repro_torch, explore, mods, dev, card):
+    """Phase 9a: the offline design-space sweep of the paper's Table-4 axes
+    (``paper_space(batch=256)``, 24 points) on the card; every ok point's
+    int path on the sweep's windows equal to its ``ref`` engine; K1
+    launched (1 warm-up + ``iters``) times per fused point.  Returns the
+    sweep's launches."""
+    iters = 20
+    rng = np.random.default_rng(19)
+    eval_x = (rng.normal(0.0, 1.0, (256, 6, 1)) * 0.7).astype(np.float32)
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    payload = explore.sweep(explore.paper_space(batch=256), eval_x=eval_x,
+                            iters=iters, seed=0, device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    sweep_s = time.perf_counter() - t0
+    rows = payload["points"]
+    ok = [r for r in rows if r["status"] == "ok"]
+    fused = [r for r in ok if r["plan"]["backend"] == "pallas"]
+    check(len(rows) == 24 and len(ok) == 24,
+          f"{len(ok)} of {len(rows)} sweep points ok: "
+          f"{[(r['label'], r.get('reason')) for r in rows if r['status'] != 'ok']}")
+    check(launches == {**{k: 0 for k in launches},
+                       "multilayer": len(fused) * (iters + 1)},
+          f"the sweep launched {launches} for {len(fused)} fused points x "
+          f"{iters + 1} calls")
+    for r in rows:
+        m = r["metrics"]
+        check(all(np.isfinite(v) for v in m.values()), f"{r['label']}: {m}")
+        log(f"phase 9a: {r['label']} ({r['plan']['backend']}): "
+            f"{m['us_per_wave']:.3f} us a wave, {m['samples_per_s']:.1f} samples/s, "
+            f"{m['throughput_gops']:.6f} GOP/s, modelled {m['gops_per_watt']:.6f} "
+            f"GOP/s/W at {m['total_w']:.3f} W, int-vs-float MSE "
+            f"{m['int_float_mse']:.3e}{' (front)' if r['pareto'] else ''}")
+    # The check: each point rebuilt from its record and seed; the ref
+    # engine runs only the pipelined ALU, so a per_step point (the xla
+    # engine's torch ops on the card) is held against the same session on
+    # the CPU.
+    for r in ok:
+        model, accel = explore.point_from_config(r["config"]).configs()
+        sess = repro_torch.build(model, accel, seed=payload["seed"],
+                                 device=dev).quantize()
+        y = sess.infer(eval_x, path="int")
+        if r["config"]["alu_mode"] == "per_step":
+            want = repro_torch.build(model, accel, seed=payload["seed"],
+                                     device="cpu").quantize().infer(eval_x, path="int")
+        else:
+            want = sess.infer(eval_x, path="int", backend="ref")
+        check(torch.equal(y.cpu(), want.cpu()),
+              f"{r['label']}: the int path differs from its oracle")
+    # Where a fused point's wave goes: the front's first point, its int
+    # path under the profiler (20 calls, as the sweep times them).
+    front = next(r for r in rows if r["label"] == payload["front"][0])
+    model, accel = explore.point_from_config(front["config"]).configs()
+    fn = repro_torch.build(model, accel, seed=payload["seed"],
+                           device=dev).quantize().compiled("int")
+    xd = torch.as_tensor(eval_x, device=dev)
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")
+    avgs, wall_ms = profile(lambda: fn(xd), 20)
+    busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 20 / 1e3
+    log(f"phase 9a: {front['label']}'s wave: {wall_ms / 20:.6f} ms wall under the "
+        f"profiler, {busy_ms:.6f} ms device busy, idle share "
+        f"{1 - busy_ms / (wall_ms / 20):.4f} on {card}")
+    log(avgs.table(sort_by="cpu_time_total", row_limit=12))
+    log(f"phase 9a: sweep of {len(rows)} points in {sweep_s:.1f} s, front "
+        f"{payload['front']}; {len(fused)} fused points, K1 launches "
+        f"{launches['multilayer']} = {len(fused)} x (1 warm-up + {iters}); every "
+        f"pipelined point's int path equals its ref engine, every per_step "
+        f"point's equals the CPU's, on the sweep's {len(eval_x)} windows on {card}")
+    return launches
+
+
+def phase9_serving(explore, mods, dev, card):
+    """Phase 9b: a serving halving sweep (host/device residency x batch 16/64)
+    on phase 4's traffic, ``autotune`` on its payload, and the winner
+    re-measured by ``measure_scenario`` against the SLO it was chosen
+    under.  Returns the sweep's launches."""
+    slo = "p99_ms<=500"
+    space = explore.SearchSpace(state_residency=("host", "device"), batch=(16, 64))
+    scenario = explore.ServingScenario(streams=128, windows_per_stream=6,
+                                       deadline_ms=5.0, name="phase4")
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    payload = explore.sweep(space, scenario=scenario, strategy="halving",
+                            objective="samples_per_s", constraint=slo, seed=0,
+                            device=dev)
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    tr = payload["halving"]
+    check(tr["sizes"] == [4, 2, 1] and tr["total_measurements"] == 7,
+          f"halving schedule {tr['sizes']}, {tr['total_measurements']} runs")
+    check(launches["slot"] > 0 and launches["multilayer"] > 0,
+          f"the serving sweep launched {launches}")
+    for r in payload["points"]:
+        m, op = r["metrics"], r["operating_point"]
+        log(f"phase 9b: {r['label']} ({r['plan']['state_residency']}, rung "
+            f"{op['rung']} at {op['fraction']:g}): {m['samples_per_s']:.1f} "
+            f"samples/s, p50 {m['p50_ms']:.3f} p99 {m['p99_ms']:.3f} ms, "
+            f"{m['waves']:.0f} waves, modelled {m['gops_per_watt']:.6f} GOP/s/W")
+    winner = explore.autotune(payload=payload, objective="samples_per_s",
+                              constraint=slo, device=dev)
+    best = winner.autotune_summary["best"]
+    cfg = best["config"]
+    reset_counts(mods)
+    m = winner.measure_scenario(explore.ServingScenario.from_dict(payload["scenario"]),
+                                batch=cfg["batch"], state_residency=cfg["state_residency"])
+    torch.cuda.synchronize()
+    re_launches = read_counts(mods)
+    counter = "slot" if cfg["state_residency"] == "device" else "multilayer"
+    check(re_launches[counter] == m["waves"] + 1,
+          f"re-measure launched {re_launches} for {m['waves']} waves + a warm-up")
+    check(explore.parse_constraint(slo).ok(m), f"the winner misses {slo}: {m}")
+    log(f"phase 9b: halving {tr['sizes']} over {tr['total_measurements']} runs in "
+        f"{time.perf_counter() - t0:.1f} s, launches {launches}; autotune picked "
+        f"{best['label']} ({best['metrics']['samples_per_s']:.1f} samples/s); "
+        f"measure_scenario: {m['samples_per_s']:.1f} samples/s, p99 "
+        f"{m['p99_ms']:.3f} ms meets {slo}, {m['waves']:.0f} waves, "
+        f"{counter} launches {re_launches[counter]}, modelled "
+        f"{m['gops_per_watt']:.6f} GOP/s/W on {card}")
+    return launches
+
+
+class PowerSampler:
+    """The board's ``power.draw`` (W) from ``nvidia-smi -lms 100`` (~10 Hz)
+    in a child process, each reading stamped on the host's clock; a
+    ``with`` block starts and stops the child."""
+
+    def __init__(self):
+        self.samples = []
+
+    def __enter__(self):
+        import threading
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    self.samples.append((time.perf_counter(), float(line)))
+                except ValueError:
+                    pass
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=10)
+        self.reader.join(timeout=10)
+
+    def median(self, t0, t1):
+        """Median of the readings between host times ``t0`` and ``t1``."""
+        got = [w for t, w in self.samples if t0 <= t <= t1]
+        check(len(got) >= 5, f"{len(got)} power readings in {t1 - t0:.1f} s")
+        return float(np.median(got)), len(got)
+
+
+def busy_watts(sampler, fn, seconds, settle=1.0):
+    """Run ``fn`` back to back for ``seconds``; returns (median W after
+    ``settle`` s — nvidia-smi's reading averages over about a second —,
+    readings, calls, wall s)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls = 0
+    while time.perf_counter() - t0 < seconds:
+        fn()
+        calls += 1
+        if calls % 8 == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    watts, n = sampler.median(t0 + settle, t1)
+    return watts, n, calls, t1 - t0
+
+
+def phase9_power(session, qc, qm, ha, fxp, lstm_ops, dev, card):
+    """Phase 9c: the board's idle draw, its draw under K1 ``infer`` at batch
+    256 beside the energy model's ``total_w`` at the same operating point,
+    and the fits behind ``core/energy.py``'s constants (each loop's draw
+    above idle over its operations or bytes a second)."""
+    from repro_torch.core import energy
+    model = session.model
+    rng = np.random.default_rng(9)
+    x = (rng.normal(0.0, 1.0, (256, model.seq_len, model.input_size)) * 0.7
+         ).astype(np.float32)
+    ops = session.cell.ops_per_inference(model)
+    out = {}
+    with PowerSampler() as ps:
+        torch.cuda.synchronize()
+        time.sleep(2.0)
+        t0 = time.perf_counter()
+        time.sleep(2.5)
+        out["idle_w"], n_idle = ps.median(t0, time.perf_counter())
+        busy_w, n_busy, calls, wall = busy_watts(
+            ps, lambda: session.infer(x, path="int"), 5.0)
+        lat = wall / calls
+        rep = session.report(latency_s=lat, batch=256)["energy"]
+        out.update(busy_w=busy_w, infer_ms=lat * 1e3,
+                   model_total_w=rep["total_w"],
+                   model_gops_per_watt=rep["gops_per_watt"],
+                   measured_gops_per_watt=256 * ops / lat / 1e9 / busy_w)
+        log(f"phase 9c: board power idle {out['idle_w']:.2f} W (median of {n_idle} "
+            f"readings), busy {busy_w:.2f} W ({n_busy} readings) during {calls} K1 "
+            f"infer calls at batch 256 ({lat * 1e3:.6f} ms a call, "
+            f"{256 * ops / lat / 1e9:.3f} GOP/s); the model's total_w there "
+            f"{rep['total_w']:.2f} W ({rep['total_w'] / busy_w:.4f} of the busy "
+            f"reading), its GOP/s/W {rep['gops_per_watt']:.6f}; measured GOP/s/W "
+            f"{out['measured_gops_per_watt']:.6f} (ops/s over busy W) on {card}")
+
+        # Calibration loops, each sustained for a few seconds: K6 on 1 GiB
+        # of int8 codes (bytes), K1 at a large batch (CUDA-core int32), K4
+        # and a bf16 torch.matmul on 8192^3 products (tensor cores).
+        n6 = 1 << 30
+        codes6 = torch.randint(-128, 128, (n6,), dtype=torch.int8, device=dev)
+        w6, _, c6, s6 = busy_watts(ps, lambda: ha.hard_tanh(codes6, cfg=fxp.FXP_4_8),
+                                   4.0)
+        del codes6
+        e_hbm = (w6 - out["idle_w"]) / (2 * n6 * c6 / s6)
+        acts, sd = model.acts, model.fxp.storage_dtype
+        kw = dict(cfg=model.fxp, hs_method=session.accel.hs_method,
+                  hs_slope_shift=acts.hs_slope_shift, hs_bound=acts.hs_bound,
+                  ht_min=acts.ht_min, ht_max=acts.ht_max)
+        layers = session.qparams["layers"]
+        wxs = [p["w_x"].to(sd) for p in layers]
+        whs = [p["w_h"].to(sd) for p in layers]
+        bs = [p["b"] for p in layers]
+        B1 = 1 << 20
+        x1 = torch.randint(-8, 8, (model.seq_len, B1, model.input_size),
+                           dtype=torch.int8, device=dev)
+        z1 = [torch.zeros(B1, model.hidden_size, dtype=torch.int32, device=dev)]
+        w1, _, c1, s1 = busy_watts(
+            ps, lambda: qc.qlstm_seq_multilayer(x1, wxs, whs, bs, z1, z1, **kw), 4.0)
+        o1 = lstm_ops(model) * B1 * c1 / s1
+        b1 = (x1.numel() + 4 * 4 * B1 * model.hidden_size
+              + model.seq_len * B1 * model.hidden_size) * c1 / s1
+        del x1, z1
+        e_vpu = (w1 - out["idle_w"] - e_hbm * b1) / o1
+        N = 8192
+        a8 = torch.randint(-128, 128, (N, N), dtype=torch.int8, device=dev)
+        w4, _, c4, s4 = busy_watts(ps, lambda: qm.quant_matmul(a8, a8), 4.0)
+        o4, b4 = 2 * N ** 3 * c4 / s4, 6 * N * N * c4 / s4
+        e_int8 = (w4 - out["idle_w"] - e_hbm * b4) / o4
+        del a8
+        ab = torch.randn(N, N, dtype=torch.bfloat16, device=dev)
+        wb, _, cb, sb = busy_watts(ps, lambda: ab @ ab, 4.0)
+        ob, bb = 2 * N ** 3 * cb / sb, 6 * N * N * cb / sb
+        e_bf16 = (wb - out["idle_w"] - e_hbm * bb) / ob
+        del ab
+    out.update(e_hbm=e_hbm, e_vpu=e_vpu, e_int8=e_int8, e_bf16=e_bf16)
+    log(f"phase 9c: calibration: K6 1 GiB int8 {w6:.2f} W at {2 * n6 * c6 / s6 / 1e12:.4f}"
+        f" TB/s -> E_HBM_J_PER_BYTE {e_hbm:.6e}; K1 B={B1} {w1:.2f} W at "
+        f"{o1 / 1e12:.4f} TOP/s -> E_VPU_J_PER_FLOP {e_vpu:.6e}; K4 {N}^3 int8 "
+        f"{w4:.2f} W at {o4 / 1e12:.4f} TOP/s -> E_MXU_INT8_J_PER_OP {e_int8:.6e}; "
+        f"bf16 matmul {N}^3 {wb:.2f} W at {ob / 1e12:.4f} TFLOP/s -> "
+        f"E_MXU_BF16_J_PER_FLOP {e_bf16:.6e}; P_STATIC_W {out['idle_w']:.2f} "
+        f"(the package's constants: P_STATIC_W {energy.P_STATIC_W}, E_VPU "
+        f"{energy.E_VPU_J_PER_FLOP:.3e}, E_HBM {energy.E_HBM_J_PER_BYTE:.3e}, "
+        f"E_INT8 {energy.E_MXU_INT8_J_PER_OP:.3e}, E_BF16 "
+        f"{energy.E_MXU_BF16_J_PER_FLOP:.3e}) on {card}")
+    check(out["busy_w"] > 0 and out["idle_w"] > 0, "no board power read")
+    return out
+
+
+def phase9(repro_torch, session, mods, qc, qm, ha, fxp, lstm_ops, dev, card):
+    """Phase 9: the offline sweep (9a), the serving halving sweep, autotune
+    and ``measure_scenario`` (9b), and board power (9c).  Returns the
+    launches of 9a and 9b (9c's are measurement loops)."""
+    from repro_torch import explore
+    totals = dict(phase9_sweep(repro_torch, explore, mods, dev, card))
+    for k, v in phase9_serving(explore, mods, dev, card).items():
+        totals[k] = totals.get(k, 0) + v
+    phase9_power(session, qc, qm, ha, fxp, lstm_ops, dev, card)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1300,6 +1600,13 @@ def main() -> int:
     log(f"phase 8: done in {time.perf_counter() - t0:.1f} s; launches "
         f"{serving_launches}")
 
+    # -- phase 9: the explorer, serving GOP/s/W and board power --------------
+    t0 = time.perf_counter()
+    explore_launches = phase9(repro_torch, session, mods, qc, qm, ha, fxp,
+                              lstm_ops, dev, card)
+    log(f"phase 9: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{explore_launches}")
+
     # -- phase 5: timings ----------------------------------------------------
     sass = {op: sass_count(_build, name, op)
             for name, op in (("quant_matmul", "IMMA"), ("flash_attention", "HMMA"))}
@@ -1335,7 +1642,7 @@ def main() -> int:
                 + T * 64 * H)
     launches = {k: infer_launches[k] + serve_launches[k] + ops_launches[k]
                 + lm_launches[k] + train_launches[k] + serving_launches.get(k, 0)
-                for k in infer_launches}
+                + explore_launches.get(k, 0) for k in infer_launches}
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",

@@ -22,13 +22,15 @@ the callables returned by ``compiled*`` are plain closures cached per
 engine.
 
 ``replicate`` pins copies of a quantised session to devices, and
-``build_cluster`` puts them behind a ``serving.ClusterServer``.  Not
-ported yet: ``report`` and ``measure_scenario`` (energy and explorer
-slices).
+``build_cluster`` puts them behind a ``serving.ClusterServer``.
+``report`` gives the resolved plan with the Table-4 energy block of
+``core/energy.py`` (the H100's constants), and ``measure_scenario``
+scores the session under a ``repro_torch.explore.ServingScenario``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -38,6 +40,7 @@ from repro_torch import backends, cells
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core.accelerator import (AcceleratorConfig, plan as resolve_plan,
                                           resolve_model, sync_accelerator)
+from repro_torch.core.energy import power_report
 from repro_torch.core.qlstm import QLSTMConfig, tree_to
 
 Tensor = torch.Tensor
@@ -45,8 +48,15 @@ Params = Dict[str, Any]
 
 PATHS = ("float", "qat", "int")
 
+# The paper's measured operating point: 28.07 us an inference on its FPGA
+# (the XC7S15, §6) — the default latency anchor of report(), not a
+# measurement of this card.
+PAPER_LATENCY_S = 28.07e-6
 
-def _resolve_device(device) -> torch.device:
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card, and
+    raises when there is none (nothing falls back to the CPU)."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -89,12 +99,13 @@ def build_cluster(session, n: int, *, devices=None, names=None, config=None,
 class Accelerator:
     """A built accelerator: params + resolved plan + dispatchable
     datapaths on one device.  Lifecycle: ``build`` -> ``train_qat`` ->
-    ``quantize`` -> ``infer`` / ``serve``; stage methods return ``self``."""
+    ``quantize`` -> ``infer`` / ``serve`` / ``report``; stage methods
+    return ``self``."""
 
     def __init__(self, model: QLSTMConfig, accel: AcceleratorConfig, *,
                  params: Optional[Params] = None, seed: int = 0,
                  device: Union[str, torch.device, None] = None):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.model = resolve_model(model, accel)
         self.accel = sync_accelerator(self.model, accel)
         self.cell = cells.get(self.model.cell)
@@ -377,6 +388,50 @@ class Accelerator:
         from repro_torch.serving import serve_windows
         return serve_windows(self, stream, batch=batch, path=path,
                              backend=backend)
+
+    def measure_scenario(self, scenario, *, batch: Optional[int] = None,
+                         replicas: int = 1,
+                         state_residency: str = "auto") -> Dict[str, Any]:
+        """Measure THIS session at a serving operating point: ``scenario``
+        (a ``repro_torch.explore.ServingScenario``) stands up a short real
+        ``StreamServer`` (or ``ClusterServer`` when ``replicas > 1``) run
+        and returns the ``metrics_summary()``-derived objectives
+        (samples/s, p50/p95/p99 ms, deadline-miss rate, GOP/s/W) — the
+        check that an autotuned session still meets its SLO."""
+        return scenario.run(self, batch=batch, replicas=replicas,
+                            state_residency=state_residency)
+
+    # -- reporting ----------------------------------------------------------
+
+    def report(self, latency_s: float = PAPER_LATENCY_S,
+               batch: int = 1) -> Dict[str, Any]:
+        """Resolved plan + op/footprint accounting + the Table-4-style
+        energy report at the given operating point (``latency_s`` for a
+        wave of ``batch`` inferences).
+
+        The energy block scores the CUDA-core int32 terms for both
+        ``compute_unit`` values: ``mxu`` and ``vpu`` run the same CUDA-core
+        kernel on this card (``core/accelerator.py``), so tensor-core
+        energy would score a unit the datapath never used."""
+        ops = self.cell.ops_per_inference(self.model)
+        energy = power_report(
+            flops=ops * batch, hbm_bytes=self.plan["weight_bytes"],
+            ici_bytes=0, latency_s=latency_s, unit="vpu",
+            dtype="int8" if self.accel.fxp.total_bits <= 8 else "bf16")
+        return {
+            "model": dataclasses.asdict(self.model),
+            "plan": {**self.plan,
+                     "fxp": dataclasses.asdict(self.plan["fxp"])},
+            "backend": self.plan["backend"],
+            "backends_supported": backends.supported_backends(self.model,
+                                                              self.accel),
+            "stateful_backends": backends.stateful_backends(self.model,
+                                                            self.accel),
+            "ops_per_inference": ops,
+            "weight_bytes": self.plan["weight_bytes"],
+            "quantized": self.qparams is not None,
+            "energy": energy,
+        }
 
     def __repr__(self) -> str:
         return (f"Accelerator(fxp={self.model.fxp}, "

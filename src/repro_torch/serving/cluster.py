@@ -547,8 +547,6 @@ class ClusterServer:
             # Per-device efficiency: GOP/s and W both scale with N, so the
             # cluster's GOP/s/W is the throughput-weighted mean over the
             # replicas that served work (≈ any one replica's, by design).
-            # The port's replicas report no energy until an energy model
-            # is calibrated on the card, so this block stays empty.
             g = [(p["gops_per_watt"], p["samples"]) for p in per.values()
                  if "gops_per_watt" in p]
             if g:

@@ -6,7 +6,7 @@ summary` reduces them to the numbers the paper reports for its real-time
 deployment (§6): achieved samples/s, per-wave latency percentiles
 (p50/p95/p99), wave occupancy, and how often the deadline forced a partial
 flush.  ``StreamServer.metrics_summary`` adds the operation count per
-inference; the energy model's GOP/s/W waits for the energy slice.
+inference and the energy model's GOP/s/W (``core/energy.py``).
 
 Latency definitions:
 

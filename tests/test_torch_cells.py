@@ -19,11 +19,10 @@ seed.  Tolerances, each stated where it is checked:
     ``lam_q`` codes within one code, at most ``MAX_LAM_FLIPS`` of them
     moved (torch's and XLA's sigmoid may differ by an ulp).
 
-Four tests of ``tests/test_cells.py`` need ``Accelerator.report`` or the
-explorer, which the port does not have yet: ``test_report_runs_per_cell``,
-``test_explore_cell_axis``,
-``test_point_from_config_defaults_old_records_to_lstm`` and
-``test_point_configs_set_model_cell``."""
+``Accelerator.report`` and the explorer's cell axis are held here too
+(``test_report_runs_per_cell``, ``test_explore_cell_axis``,
+``test_point_from_config_defaults_old_records_to_lstm``,
+``test_point_configs_set_model_cell``)."""
 
 import dataclasses
 
@@ -35,6 +34,7 @@ from hypothesis_compat import given, settings, st
 
 import repro_torch
 from repro_torch import backends as tbackends
+from repro_torch import explore
 from repro_torch import cells as tcells
 from repro_torch.backends import BackendUnsupported
 from repro_torch.convert import params_from_reference, qparams_from_reference
@@ -314,6 +314,47 @@ def test_pallas_refuses_cells_without_fused_kernel():
         with pytest.raises(ValueError, match="no fused kernel"):
             repro_torch.build(_model(cell), AcceleratorConfig(backend="pallas"),
                               device="cpu")
+
+
+def test_report_runs_per_cell():
+    for cell in CELLS:
+        r = repro_torch.build(_model(cell), seed=5, device="cpu") \
+            .quantize().report()
+        assert r["ops_per_inference"] > 0
+        assert r["weight_bytes"] > 0
+        assert r["plan"]["cell"] == cell
+        if jax is not None:
+            jr = repro.build(_jmodel(cell), seed=5).quantize().report()
+            assert (r["ops_per_inference"], r["weight_bytes"]) == \
+                (jr["ops_per_inference"], jr["weight_bytes"])
+
+
+def test_explore_cell_axis():
+    # cell sits between the Table-2 axes and the serving axes
+    assert explore.AXES[-3:] == ("cell", "replicas", "state_residency")
+    space = explore.SearchSpace(cell=("lstm", "gru"))
+    assert space.size == 2
+    labels = [p.label for p in space.grid()]
+    assert labels[0].endswith("_auto")          # lstm label unchanged
+    assert labels[1].endswith("_gru")
+    with pytest.raises(ValueError, match="cell choice"):
+        explore.SearchSpace(cell=("mamba",))
+
+
+def test_point_from_config_defaults_old_records_to_lstm():
+    from repro_torch.explore.space import point_from_config
+    p = next(iter(explore.SearchSpace().grid()))
+    d = p.asdict()
+    del d["cell"]                               # a pre-cell-axis record
+    assert point_from_config(d).cell == "lstm"
+    assert point_from_config(p.asdict()) == p
+
+
+def test_point_configs_set_model_cell():
+    space = explore.SearchSpace(cell=("rglru",))
+    model, accel = next(iter(space.grid())).configs()
+    assert model.cell == "rglru"
+    assert plan(model, accel)["backend"] == "xla"
 
 
 def test_stateful_ladder_per_cell():

@@ -326,8 +326,8 @@ def test_cluster_rejects_non_replicas(sess):
 
 def test_cluster_metrics_aggregate(sess):
     """metrics_summary: merged aggregate block + per-replica breakdown +
-    summed fault/state counters + the ring block.  The port's replicas
-    carry no energy model yet, so no GOP/s/W appears."""
+    summed fault/state counters + the ring block + the replicas'
+    sample-weighted GOP/s/W."""
     with _cluster(sess, 2) as cluster:
         for i, w in enumerate(_windows(12, seed=6)):
             cluster.submit(f"m{i % 4}", w)
@@ -343,7 +343,7 @@ def test_cluster_metrics_aggregate(sess):
     assert s["ring"]["vnodes"] == 64
     assert s["ring"]["streams_routed"] == 4
     assert s["health"]["status"] == "ok"
-    assert "gops_per_watt" not in s
+    assert s["gops_per_watt"] > 0
     assert all(p["ops_per_inference"] == tq.ops_per_inference(sess.model)
                for p in s["replicas"].values() if p["waves"])
 

@@ -51,6 +51,12 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.serving.routing, repro_torch.cells.gru\n"
             "import repro_torch.cells.rglru, repro_torch.launch.mesh\n"
             "import repro_torch.sharding.partition\n"
+            "import repro_torch.explore, repro_torch.core.energy\n"
+            "import repro_torch.analysis.report\n"
+            "from repro_torch import explore\n"
+            "pl = explore.sweep(explore.SearchSpace(batch=4, hidden_size=8),\n"
+            "                   iters=1, device='cpu')\n"
+            "print(pl['points'][0]['status'], pl['front'] == [pl['points'][0]['label']])\n"
             "import torch\n"
             "from repro_torch.core.fixed_point import FXP_4_8\n"
             "from repro_torch.kernels import ops\n"
@@ -76,5 +82,5 @@ def test_port_imports_with_jax_and_reference_blocked():
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines() == [
-        "(1, 1)", "r1", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]",
+        "ok True", "(1, 1)", "r1", "[[8, 8, 8], [8, 8, 8], [8, 8, 8]]",
         "(2, 1, 128) True"]
