@@ -20,7 +20,9 @@ vocab 256,000; bf16 activations over f32 master params, random init from
 a ``torch.Generator`` seeded 0), quantisation-aware training of the
 paper's model (``train_qat``) on the card, the serving tier (the
 seeded fault injector, the GRU and rGLRU cells, the four-replica
-cluster), and the explorer with the energy model, in phases:
+cluster), the explorer with the energy model, and the LM side's dense,
+MoE, RWKV-6, VLM and audio families with w8/w8a8 weights and an int8 KV
+cache (qwen1.5-0.5B at its published width and depth), in phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -126,7 +128,28 @@ cluster), and the explorer with the energy model, in phases:
      and the sustained loops whose fits are ``core/energy.py``'s constants
      (K6 on 1 GiB, K1 at a batch of 2^20, K4 and a bf16 ``torch.matmul``
      on 8192^3 products; 9c's loops are measurements and stay out of the
-     launch counts).
+     launch counts);
+ 10. the LM side's other families (``repro_torch.models``, random weights
+     from a ``torch.Generator`` seeded 0, f32 master params): (a)
+     qwen1.5-0.5B at its published width and depth (24 layers, d_model
+     1024, 16 heads of 64, d_ff 2816, vocab 151,936), ``forward_prefill``
+     at B=1, T=2048 in f32 and bf16 (finite, no kernel launched, wall time
+     and idle share), a 32-token prompt decoded step by step against the
+     prefill (f32 within 0.3, bf16 within its distance from f32), and
+     ``serve.main --preset full`` unquantised, ``--quant w8``, ``--quant
+     w8a8`` and ``--quant w8a8 --kv-int8`` (tokens/s; K4 launched only by
+     the w8a8 modes); (b) K4 on the w8a8 path: one w8a8 + int8-KV decode
+     step launches K4 once per quantised ``linear`` it runs, its int32
+     accumulators equal the plain product's on the card (tolerance 0) and
+     the logits are identical; the step's device time by kernel (K4's
+     w^T rebuild beside its products), and K4 timed at the decode (M = 4)
+     and prefill (M = 2048) shapes beside its bound and ``torch._int_mm``
+     where that call takes the shape; (c) gemma2-2b, mixtral-8x7b,
+     phi3.5-moe, rwkv6-7b, qwen2-vl-2b and musicgen-medium at their
+     published widths, depth cut to 2 layers (gemma2: one local, one
+     global), each: prefill against step-by-step decode of a 16-token
+     prompt (dropless MoE capacity) in f32 and bf16, then a w8a8 + int8-KV
+     decode, finite, through K4.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -135,6 +158,8 @@ rest of the repository beside it, the script exits non-zero and prints
 no result.
 """
 
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -143,6 +168,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1417,6 +1443,374 @@ def phase9(repro_torch, session, mods, qc, qm, ha, fxp, lstm_ops, dev, card):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the LM side's dense, MoE, RWKV-6, VLM and audio families
+# ---------------------------------------------------------------------------
+
+QWEN, QWEN_T, QWEN_PROMPT, FAMILY_PROMPT = "qwen1.5-0.5b", 2048, 32, 16
+SERVE_MODES = ((), ("--quant", "w8"), ("--quant", "w8a8"),
+               ("--quant", "w8a8", "--kv-int8"))
+# The other families at their published widths, depth cut to two layers
+# (gemma2: one local layer and one global).
+CUT_ARCHS = ("gemma2-2b", "mixtral-8x7b", "phi3.5-moe", "rwkv6-7b",
+             "qwen2-vl-2b", "musicgen-medium")
+CUT_LAYERS = 2
+
+
+def lm_inputs(params, cfg, tokens):
+    """The model batch for ``tokens`` (B, T) as ``launch/serve.py`` builds
+    it: token ids, or for an arch without an embedding input the frontend
+    stub's frames (the ids through the table, bf16).  ``lm_step`` and
+    ``lm_prefill_batch`` add M-RoPE's positions."""
+    if cfg.embed_inputs:
+        batch = {"tokens": tokens}
+    else:
+        emb = params["embed"]
+        e = (emb["q"][tokens].to(torch.bfloat16) * emb["s"].to(torch.bfloat16)
+             if isinstance(emb, dict) else emb[tokens].to(torch.bfloat16))
+        batch = {"inputs_embeds": e}
+    return batch
+
+
+def lm_step(cfg, batch, t, b, dev):
+    """Decode step t's slice of ``lm_inputs``' batch."""
+    out = {k: v[:, t:t + 1] for k, v in batch.items()}
+    out["cache_pos"] = t
+    if cfg.attn and cfg.attn.mrope_sections:
+        out["position_ids"] = torch.full((3, b, 1), t, device=dev)
+    return out
+
+
+def lm_prefill_batch(cfg, batch, dev):
+    out = dict(batch)
+    if cfg.attn and cfg.attn.mrope_sections:
+        x = next(iter(batch.values()))
+        pos = torch.arange(x.shape[1], device=dev)
+        out["position_ids"] = pos.expand(3, x.shape[0], x.shape[1])
+    return out
+
+
+def lm_decode(T, params, cfg, batch, dev, cache_len=None, kv_dtype=None):
+    """Decode ``batch``'s steps one by one; returns (last logits, cache).
+    ``kv_dtype`` replaces the cache's bf16 KV dtype (f32: the f32 path
+    with nothing stored in bf16)."""
+    x = next(iter(batch.values()))
+    b, t_len = x.shape[:2]
+    cache = T.init_cache(cfg, b, cache_len or t_len, device=dev)
+    if kv_dtype is not None:
+        cache = {k: v.to(kv_dtype) if k in ("k", "v") else v
+                 for k, v in cache.items()}
+    for t in range(t_len):
+        logits, cache = T.forward_decode(params, cache,
+                                         lm_step(cfg, batch, t, b, dev), cfg)
+    return logits, cache
+
+
+def prefill_vs_decode(T, params, cfg, batch, dev):
+    """The prefill's last logits against a step-by-step decode of the same
+    prompt, in f32 and bf16 activations on the same weights.  Returns
+    (f32 |err| with an f32 KV cache, f32 |err| with the bf16 KV cache the
+    model keeps, bf16 |err|, bf16 decode's |err| against the f32 prefill,
+    |bf16 prefill - f32 prefill|).
+
+    The reference's bound (0.3) is set at its reduced config; it holds the
+    f32 path, where prefill and decode differ only in summation order.
+    The decode cache stores KV in bf16 whatever the activation dtype; at
+    full width (logits of ~100 from a tied, unit-scale embedding, where a
+    bf16 ulp is 0.5) that rounding alone moves the largest logit past 0.3,
+    so an f32 decode over the bf16 cache is held to the distance between
+    the bf16 and the f32 prefill, and the bf16 decode to twice that
+    distance from the f32 prefill (it rounds as often as the bf16 prefill
+    does, in another order)."""
+    maxdiff = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        pre = T.forward_prefill(params, lm_prefill_batch(c, batch, dev), c)[:, -1]
+        step, _ = lm_decode(T, params, c, batch, dev)
+        check(bool(torch.isfinite(pre).all() and torch.isfinite(step).all()),
+              f"{cfg.name} {dtype}: non-finite logits")
+        out[dtype] = pre, step[:, 0]
+    c32 = cfg.replace(dtype="float32")
+    step32, _ = lm_decode(T, params, c32, batch, dev, kv_dtype=torch.float32)
+    pre32 = out["float32"][0]
+    err32 = maxdiff(pre32, step32[:, 0])
+    err32kv = maxdiff(*out["float32"])
+    err16 = maxdiff(*out["bfloat16"])
+    err16_32 = maxdiff(out["bfloat16"][1], pre32)
+    floor = maxdiff(out["bfloat16"][0], pre32)
+    check(err32 < 0.3, f"{cfg.name}: f32 prefill and decode (f32 KV) differ by "
+          f"{err32} (bound 0.3)")
+    check(err32kv <= floor, f"{cfg.name}: f32 prefill and decode over the bf16 "
+          f"KV cache differ by {err32kv}, more than bf16 differs from f32 "
+          f"({floor})")
+    check(err16_32 <= 2 * floor, f"{cfg.name}: the bf16 decode is {err16_32} "
+          f"from the f32 prefill, more than twice the bf16 prefill ({floor})")
+    return err32, err32kv, err16, err16_32, floor
+
+
+class QuantLinearCount:
+    """Counts the ``linear`` calls on ``{"q", "s"}`` weights while active
+    (``models.layers.linear`` and the modules that imported it)."""
+
+    def __init__(self, mods):
+        self.mods, self.n = mods, 0
+
+    def __enter__(self):
+        self.real = self.mods[0].linear
+
+        def counting(x, w, *a, **kw):
+            self.n += isinstance(w, dict)
+            return self.real(x, w, *a, **kw)
+        for m in self.mods:
+            m.linear = counting
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.linear = self.real
+
+
+def run_serve(serve, argv):
+    """``serve.main(argv)`` with its report captured; returns (tokens,
+    tokens/s, report lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gen = serve.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    tps = float(re.search(r"= ([0-9.]+) tok/s", buf.getvalue()).group(1))
+    return gen, tps, lines
+
+
+def phase10_qwen(T, ARCH_CONFIGS, serve, mods, dev, card):
+    """10a: qwen1.5-0.5B at its published width and depth.  Returns the
+    serve runs' kernel launches."""
+    from repro_torch.models.modules import count_params
+    cfg = ARCH_CONFIGS[QWEN]
+    params, _ = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(10)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, QWEN_T)), device=dev)
+    log(f"phase 10a: {QWEN}: {count_params(params)} f32 parameters, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (nothing cut)")
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")  # noqa: E731
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        prefill = lambda: T.forward_prefill(params, {"tokens": tokens}, c)  # noqa: E731
+        reset_counts(mods)
+        logits = prefill()
+        torch.cuda.synchronize()
+        launches = read_counts(mods)
+        check(not any(launches.values()), f"the float prefill launched {launches}")
+        check(tuple(logits.shape) == (1, 1, cfg.vocab_size) and
+              bool(torch.isfinite(logits).all()), f"prefill logits {logits.shape}")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            prefill()
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3 / 2
+        avgs, wall_ms = profile(prefill, 2)
+        busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 2 / 1e3
+        log(f"phase 10a: {QWEN} forward_prefill B=1 T={QWEN_T} {dtype}: finite "
+            f"(1, 1, {cfg.vocab_size}); {pre_ms:.6f} ms wall "
+            f"({QWEN_T / pre_ms * 1e3:.3f} tokens/s); under the profiler "
+            f"{wall_ms / 2:.6f} ms wall, {busy_ms:.6f} ms device busy, idle share "
+            f"{1 - busy_ms / (wall_ms / 2):.4f} on {card}")
+        log(avgs.table(sort_by="cpu_time_total", row_limit=10))
+
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, QWEN_PROMPT)),
+                             device=dev)
+    err32, err32kv, err16, err16_32, floor = prefill_vs_decode(
+        T, params, cfg, {"tokens": prompt}, dev)
+    log(f"phase 10a: a {QWEN_PROMPT}-token prompt (B=2) decoded step by step "
+        f"against the prefill's last logits: f32 max |err| {err32} with an f32 "
+        f"KV cache (bound 0.3), {err32kv} over the bf16 KV cache (bound: bf16 "
+        f"prefill vs f32 prefill, {floor}); bf16 decode vs bf16 prefill "
+        f"{err16}, vs f32 prefill {err16_32} (bound {2 * floor})")
+    del params
+    torch.cuda.empty_cache()
+
+    totals = {}
+    for mode in SERVE_MODES:
+        reset_counts(mods)
+        gen, tps, lines = run_serve(serve, [
+            "--arch", QWEN, "--preset", "full", "--batch", "4", "--prompt-len",
+            "16", "--gen", "32", "--max-seq", "64", *mode])
+        launches = read_counts(mods)
+        check(gen.shape == (4, 32) and ((0 <= gen) & (gen < cfg.vocab_size)).all(),
+              f"serve {mode} returned {gen.shape}")
+        w8a8 = "w8a8" in mode
+        check((launches["int32"] > 0) == w8a8 and
+              sum(launches.values()) == launches["int32"],
+              f"serve {mode or 'float'} launched {launches}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"phase 10a: serve.main --arch {QWEN} --preset full "
+            f"{' '.join(mode) or '(float)'}: {tps} tokens/s (batch 4, 16 prompt "
+            f"+ 32 generated tokens, decode steps only); K4 launches "
+            f"{launches['int32']} on {card}")
+        for line in lines:
+            log("  " + line)
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase10_k4(T, ARCH_CONFIGS, QuantConfig, layer_mods, qm, mods, dev, card):
+    """10b: K4 on the w8a8 path of qwen1.5-0.5B: launches per decode step
+    against the quantised ``linear``s the step runs, the kernel's int32
+    accumulators against its plain product on the card (tolerance 0), its
+    share of a step's device time, and its times at the decode and the
+    prefill shapes.  Returns (the counted step's launches, timing rows)."""
+    cfg = ARCH_CONFIGS[QWEN].replace(quant=QuantConfig("w8a8", quantize_kv=True))
+    params, axes = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    params, _ = T.quantize_model_params(params, axes, cfg)
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 5)), device=dev)
+    _, cache = lm_decode(T, params, cfg, {"tokens": tokens[:, :4]}, dev, 64)
+    batch = {"tokens": tokens[:, 4:5], "cache_pos": 4}
+
+    real = qm.quant_matmul
+    accs = {"kernel": [], "plain": []}
+
+    def recording(route):
+        def mm(x, w, **kw):
+            out = real(x, w, **kw) if route == "kernel" else \
+                qm.quant_matmul_plain(x, w, **kw)
+            accs[route].append(out)
+            return out
+        return mm
+
+    reset_counts(mods)
+    with QuantLinearCount(layer_mods) as n_lin:
+        qm.quant_matmul = recording("kernel")
+        try:
+            logits_k, _ = T.forward_decode(params, cache, batch, cfg)
+            torch.cuda.synchronize()
+        finally:
+            qm.quant_matmul = real
+    launches = read_counts(mods)
+    check(launches["int32"] == n_lin.n == len(accs["kernel"]) and
+          sum(launches.values()) == n_lin.n,
+          f"a w8a8 decode step ran {n_lin.n} quantised linears and launched "
+          f"{launches}")
+    qm.quant_matmul = recording("plain")
+    try:
+        logits_p, _ = T.forward_decode(params, cache, batch, cfg)
+        torch.cuda.synchronize()
+    finally:
+        qm.quant_matmul = real
+    check(len(accs["plain"]) == len(accs["kernel"]) and
+          all(torch.equal(a, b) for a, b in zip(accs["kernel"], accs["plain"])),
+          "K4's int32 accumulators differ from the plain product")
+    check(torch.equal(logits_k, logits_p), "the w8a8 logits differ between K4 "
+          "and the plain product")
+    log(f"phase 10b: one w8a8 + int8-KV decode step of {QWEN} (batch 4): "
+        f"{n_lin.n} quantised linears, K4 launches {launches['int32']}; "
+        f"{len(accs['kernel'])} int32 accumulators equal the plain product's "
+        f"on the card (tolerance 0), logits identical")
+
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")  # noqa: E731
+    step = lambda: T.forward_decode(params, cache, batch, cfg)  # noqa: E731
+    avgs, wall_ms = profile(step, 3)
+    by = {sym: sum(device_us(e) for e in avgs if is_cuda(e) and sym in e.key) / 3e3
+          for sym in ("qmm_wt_kernel", "qmm_imma_kernel")}
+    busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 3e3
+    wt_bytes = sum(2 * x.numel() for x in _quant_weights(params))
+    log(f"phase 10b: one w8a8 decode step under the profiler: {wall_ms / 3:.6f} "
+        f"ms wall, {busy_ms:.6f} ms device busy (idle share "
+        f"{1 - busy_ms / (wall_ms / 3):.4f}); K4's w^T rebuild (qmm_wt_kernel) "
+        f"{by['qmm_wt_kernel']:.6f} ms, its products (qmm_imma_kernel) "
+        f"{by['qmm_imma_kernel']:.6f} ms; the rebuild moves {wt_bytes} bytes a "
+        f"step (each quantised weight read and w^T written), "
+        f"{wt_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms at the memory rate, on {card}")
+
+    rows = {}
+    for name, m in (("decode", 4), ("prefill", QWEN_T)):
+        x = codes(rng, (m, D_MODEL), 8, dev)
+        w = codes(rng, (D_MODEL, D_FF), 8, dev)
+        ms = graph_ms(lambda: qm.quant_matmul(x, w), 500)
+        plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, w), 20)
+        check(torch.equal(qm.quant_matmul(x, w), qm.quant_matmul_plain(x, w)),
+              f"K4 differs from its plain version at M={m}")
+        try:
+            lib_ms = cuda_ms(lambda: torch._int_mm(x, w), 200)
+        except RuntimeError as e:
+            lib_ms, why = None, str(e).splitlines()[0]
+        b_ms, b_by = bound(x.numel() + w.numel() + 4 * m * D_FF,
+                           2 * m * D_MODEL * D_FF, INT8_OPS_PER_S)
+        rows[name] = dict(M=m, K=D_MODEL, N=D_FF, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        log(f"phase 10b: K4 at the {name} shape ({m}, {D_MODEL}) x ({D_MODEL}, "
+            f"{D_FF}) int8: {ms:.6f} ms device (plain {plain_ms:.6f} ms, bound "
+            f"{b_ms:.6f} ms by {b_by}, torch._int_mm "
+            f"{'rejects it: ' + why if lib_ms is None else f'{lib_ms:.6f} ms'}) "
+            f"on {card}")
+    return launches, rows
+
+
+def _quant_weights(tree):
+    """The int8 codes of every ``{"q", "s"}`` leaf of a params tree that a
+    decode step multiplies through K4 (the embedding is only gathered)."""
+    out = []
+    for k, v in tree.items() if isinstance(tree, dict) else enumerate(tree):
+        if isinstance(v, dict) and set(v) == {"q", "s"}:
+            if k != "embed":
+                out.append(v["q"])
+        elif isinstance(v, (dict, list)):
+            out += _quant_weights(v)
+    return out
+
+
+def phase10_families(T, ARCH_CONFIGS, QuantConfig, mods, dev, card):
+    """10c: the other families at their published widths, two layers each:
+    prefill, prefill against step-by-step decode (f32 and bf16) and a
+    w8a8 + int8-KV decode.  Returns the w8a8 decodes' launches."""
+    totals = {}
+    for arch in CUT_ARCHS:
+        t0 = time.perf_counter()
+        full = ARCH_CONFIGS[arch]
+        cfg = full.replace(n_layers=CUT_LAYERS)
+        params, axes = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        rng = np.random.default_rng(12)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, FAMILY_PROMPT)),
+                                 device=dev)
+        batch = lm_inputs(params, cfg, tokens)
+        reset_counts(mods)
+        err32, err32kv, err16, err16_32, floor = prefill_vs_decode(
+            T, params, cfg, batch, dev)
+        check(not any(read_counts(mods).values()), f"{arch}: the float path "
+              f"launched {read_counts(mods)}")
+        qcfg = cfg.replace(quant=QuantConfig("w8a8", quantize_kv=True))
+        qparams, _ = T.quantize_model_params(params, axes, qcfg)
+        del params
+        reset_counts(mods)
+        logits, cache = lm_decode(T, qparams, qcfg, lm_inputs(qparams, qcfg, tokens),
+                                  dev)
+        torch.cuda.synchronize()
+        launches = read_counts(mods)
+        check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite w8a8 logits")
+        check(launches["int32"] > 0 and sum(launches.values()) == launches["int32"],
+              f"{arch}: the w8a8 decode launched {launches}")
+        kv = {k: str(v.dtype) for k, v in cache.items() if k in ("k", "v")}
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        windows = cfg.layer_windows(1 << 20) if cfg.attn else ()
+        log(f"phase 10c: {arch} at published widths (d_model {cfg.d_model}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+            f"{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}"
+            f"), cut: {full.n_layers} -> {CUT_LAYERS} layers"
+            f"{f' (windows {windows})' if windows else ''}; B=2 "
+            f"{FAMILY_PROMPT}-token prompt: prefill vs decode f32 |err| {err32} "
+            f"(0.3; {err32kv} over bf16 KV, bound {floor}), bf16 {err16} (vs f32 "
+            f"prefill {err16_32}, bound {2 * floor}); w8a8 "
+            f"+ int8-KV decode finite, "
+            f"KV {kv or 'none (rwkv state)'}, K4 launches {launches['int32']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del qparams, cache
+        torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1607,6 +2001,31 @@ def main() -> int:
     log(f"phase 9: done in {time.perf_counter() - t0:.1f} s; launches "
         f"{explore_launches}")
 
+    # -- phase 10: the LM side's dense, MoE, RWKV-6, VLM and audio families --
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.models import rwkv6 as lm_rwkv6
+    layer_mods = (lm_layers, lm_moe, lm_rwkv6, lm_rglru)
+    log(f"phase 10: {threading.active_count()} Python threads alive at its start: "
+        f"{sorted(t.name for t in threading.enumerate())}")
+    t0 = time.perf_counter()
+    lm10_launches = {}
+    with torch.inference_mode():
+        for part in (
+                lambda: phase10_qwen(lm, ARCH_CONFIGS, serve, mods, dev, card),
+                lambda: phase10_k4(lm, ARCH_CONFIGS, QuantConfig, layer_mods, qm,
+                                   mods, dev, card),
+                lambda: phase10_families(lm, ARCH_CONFIGS, QuantConfig, mods, dev,
+                                         card)):
+            got = part()
+            if isinstance(got, tuple):
+                got, k4_rows = got
+            for k, v in got.items():
+                lm10_launches[k] = lm10_launches.get(k, 0) + v
+            torch.cuda.empty_cache()
+    log(f"phase 10: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{lm10_launches}")
+
     # -- phase 5: timings ----------------------------------------------------
     sass = {op: sass_count(_build, name, op)
             for name, op in (("quant_matmul", "IMMA"), ("flash_attention", "HMMA"))}
@@ -1642,7 +2061,8 @@ def main() -> int:
                 + T * 64 * H)
     launches = {k: infer_launches[k] + serve_launches[k] + ops_launches[k]
                 + lm_launches[k] + train_launches[k] + serving_launches.get(k, 0)
-                + explore_launches.get(k, 0) for k in infer_launches}
+                + explore_launches.get(k, 0) + lm10_launches.get(k, 0)
+                for k in infer_launches}
     lstm_src = "src/repro_torch/csrc/qlstm_cell.cu"
     specs = [
         dict(name="qlstm_seq_multilayer", replaces="src/repro/kernels/qlstm_cell.py:348",
@@ -1810,6 +2230,8 @@ def main() -> int:
         f"{k3['kernel_ms']:.6f} ms above; probes: T=1 {k3_alone(x4[:1]):.6f} ms, "
         f"weights in device memory {k3_alone(x4, weights_in_smem=False):.6f} ms "
         f"on {card}")
+    k4 = next(k for k in kernels if k["name"] == "quant_matmul_int32")
+    k4.update({f"{name}_shape": row for name, row in k4_rows.items()})
     k5 = next(k for k in kernels if k["name"] == "hard_sigmoid_star")
     k5["step_route"] = ha.step_route(spec48, pre.dtype).name
     for method in ("arithmetic", "1to1"):

@@ -1,9 +1,6 @@
 """--arch config registry + reduced (smoke-test) config derivation —
-counterpart of ``repro/configs/__init__.py``.
-
-``ARCH_CONFIGS`` holds only the architectures whose family the port runs
-(the hybrid RecurrentGemma family); asking it for any other of the
-reference's architectures raises a ``KeyError`` that says so.
+counterpart of ``repro/configs/__init__.py``: the same eleven
+architectures under the same names.
 """
 
 from __future__ import annotations
@@ -13,23 +10,33 @@ import dataclasses
 from repro_torch.configs.base import (AttnConfig, ModelConfig, MoEConfig,  # noqa: F401
                                       RecurrentConfig, RWKVConfig, ShapeSpec,
                                       SHAPES)
+from repro_torch.configs.codeqwen15_7b import CONFIG as _codeqwen
+from repro_torch.configs.gemma2_27b import CONFIG as _gemma27
+from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
+from repro_torch.configs.lstm_pems import CONFIG as _lstm
+from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
+from repro_torch.configs.musicgen_medium import CONFIG as _musicgen
+from repro_torch.configs.phi35_moe import CONFIG as _phi
+from repro_torch.configs.qwen15_05b import CONFIG as _qwen05
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwenvl
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rg
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv
 
-# The reference's architectures that the port does not run yet.
-NOT_PORTED = ("qwen2-vl-2b", "phi3.5-moe", "mixtral-8x7b", "musicgen-medium",
-              "gemma2-2b", "gemma2-27b", "qwen1.5-0.5b", "codeqwen1.5-7b",
-              "rwkv6-7b", "lstm-pems")
+ARCH_CONFIGS = {
+    "qwen2-vl-2b": _qwenvl,
+    "phi3.5-moe": _phi,
+    "mixtral-8x7b": _mixtral,
+    "musicgen-medium": _musicgen,
+    "gemma2-2b": _gemma2,
+    "gemma2-27b": _gemma27,
+    "qwen1.5-0.5b": _qwen05,
+    "codeqwen1.5-7b": _codeqwen,
+    "recurrentgemma-2b": _rg,
+    "rwkv6-7b": _rwkv,
+    "lstm-pems": _lstm,
+}
 
-
-class _ArchConfigs(dict):
-    def __missing__(self, name):
-        if name in NOT_PORTED:
-            raise KeyError(f"arch {name!r} is not ported yet to repro_torch "
-                           f"(see ROADMAP.md); ported: {sorted(self)}")
-        raise KeyError(f"unknown arch {name!r}; ported: {sorted(self)}")
-
-
-ARCH_CONFIGS = _ArchConfigs({"recurrentgemma-2b": _rg})
+ASSIGNED_ARCHS = [k for k in ARCH_CONFIGS if k != "lstm-pems"]
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:

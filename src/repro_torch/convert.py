@@ -22,12 +22,17 @@ import numpy as np
 import torch
 
 
-def _convert(tree: Any, dtype: Optional[torch.dtype], device) -> Any:
+def _convert(tree: Any, dtype: Optional[torch.dtype], device,
+             floats_only: bool = False) -> Any:
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, dtype, device, floats_only)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_convert(v, dtype, device) for v in tree]
-    return torch.as_tensor(np.array(tree), dtype=dtype, device=device)
+        return [_convert(v, dtype, device, floats_only) for v in tree]
+    arr = np.array(tree)
+    if floats_only and not np.issubdtype(arr.dtype, np.floating):
+        return torch.as_tensor(arr, device=device)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
 def params_from_reference(tree: Any,
@@ -52,9 +57,11 @@ def lm_params_from_reference(tree: Any,
     """The reference LM's params (``init_model(cfg, key)[0]`` with numpy
     arrays at the leaves: dicts, and lists for ``groups``/``tail``, in the
     stacked layout) -> the port's tree for
-    ``repro_torch.models.transformer``, leaf for leaf, as ``dtype`` on
-    ``device`` (default: the CPU)."""
-    return _convert(tree, dtype, device)
+    ``repro_torch.models.transformer``, leaf for leaf, on ``device``
+    (default: the CPU).  Float leaves become ``dtype``; integer leaves —
+    the int8 codes of ``quantize_model_params``' ``{"q", "s"}`` serve
+    weights — keep their dtype, as they are."""
+    return _convert(tree, dtype, device, floats_only=True)
 
 
 def train_state_from_reference(tree: Any,

@@ -1,17 +1,23 @@
 """Serving launcher — batched decode with a KV/recurrent-state cache;
 counterpart of ``repro/launch/serve.py``.
 
-  python -m repro_torch.launch.serve --arch recurrentgemma-2b --preset full
+  python -m repro_torch.launch.serve --arch qwen1.5-0.5b --preset full
+  python -m repro_torch.launch.serve --arch rwkv6-7b --quant w8 --kv-int8
   python -m repro_torch.launch.serve --preset tiny --device cpu
 
 It prefeeds a random prompt (numpy, ``--seed``) through decode steps
 (cache warm-up), then generates greedily, and prints tokens/s with the
-device's name.  The weights are random, drawn from a ``torch.Generator``
-seeded with ``--seed`` on the device.  ``--preset tiny`` runs the reduced
-config, ``full`` the published one; ``--arch`` defaults to the one
-architecture the port runs.  It runs on the CUDA card unless ``--device
-cpu`` is given, and raises where there is no card.
-``--quant`` and ``--kv-int8`` are not ported yet and raise.
+device's name and the quantisation mode.  The weights are random, drawn
+from a ``torch.Generator`` seeded with ``--seed`` on the device.
+``--preset tiny`` runs the reduced config, ``full`` the published one.
+``--quant w8|w8a8`` serves int8 weights (``quantize_model_params``; w8a8
+runs every quantised ``linear``'s int8 product on the card's integer GEMM
+kernel), ``--kv-int8`` an int8 KV cache.  Archs without an embedding
+input (musicgen) get their frames from the frontend stub: the token ids
+embedded through the table (``q * s`` when it is quantised); M-RoPE archs
+(qwen2-vl) get the step's position on all three streams.  It runs on the
+CUDA card unless ``--device cpu`` is given, and raises where there is no
+card.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_CONFIGS, reduce_config
+from repro_torch.core.quant import QuantConfig
 from repro_torch.models import transformer as T
 
 
@@ -36,7 +43,7 @@ def _device(name: str) -> torch.device:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--preset", default="tiny", choices=["tiny", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
@@ -48,23 +55,36 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.quant or args.kv_int8:
-        raise NotImplementedError(
-            "--quant / --kv-int8 are not ported yet to repro_torch "
-            "(ROADMAP.md: quantize_model_params, int8 KV cache)")
     dev = _device(args.device)
     base = ARCH_CONFIGS[args.arch]
     cfg = base if args.preset == "full" else reduce_config(base)
+    if args.quant or args.kv_int8:
+        cfg = cfg.replace(quant=QuantConfig(args.quant or "w8",
+                                            quantize_kv=args.kv_int8))
 
     with torch.inference_mode():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params, _ = T.init_model(cfg, gen)
+        params, axes = T.init_model(cfg, gen)
+        if cfg.quant.enabled:
+            params, axes = T.quantize_model_params(params, axes, cfg)
+            print(f"[serve] weights quantised: mode={cfg.quant.mode} "
+                  f"int8-KV={cfg.quant.quantize_kv}")
         b = args.batch
         cache = T.init_cache(cfg, b, args.max_seq, device=dev)
+        mrope = bool(cfg.attn and cfg.attn.mrope_sections)
 
         def decode(cache, tokens, pos):
-            logits, cache = T.forward_decode(
-                params, cache, {"tokens": tokens, "cache_pos": pos}, cfg)
+            batch = {"tokens": tokens, "cache_pos": pos}
+            if not cfg.embed_inputs:
+                # frontend stub: embed token ids through the embedding table
+                emb = params["embed"]
+                e = (emb["q"][tokens].to(torch.bfloat16)
+                     * emb["s"].to(torch.bfloat16)) if isinstance(emb, dict) \
+                    else emb[tokens].to(torch.bfloat16)
+                batch = {"inputs_embeds": e, "cache_pos": pos}
+            if mrope:
+                batch["position_ids"] = torch.full((3, b, 1), pos, device=dev)
+            logits, cache = T.forward_decode(params, cache, batch, cfg)
             return logits[:, -1:].argmax(-1), cache
 
         rng = np.random.default_rng(args.seed)
@@ -90,7 +110,8 @@ def main(argv=None):
     toks = b * args.gen
     print(f"[serve] {args.arch} ({cfg.n_layers}L d={cfg.d_model}) generated "
           f"{toks} tokens in {dt:.3f}s = {toks / dt:.3f} tok/s "
-          f"(batch={b}, {name})")
+          f"(batch={b}, quant={cfg.quant.mode}, int8-KV={cfg.quant.quantize_kv}, "
+          f"{name})")
     print("[serve] sample:", gen_tokens[0][:12], "...")
     return gen_tokens
 

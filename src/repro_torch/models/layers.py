@@ -1,6 +1,7 @@
 """Transformer substrate — counterpart of ``repro/models/layers.py``:
-norms, RoPE, GQA attention (windowed / softcapped / chunked online
-softmax) and GLU MLPs, hard-activation-capable (C2).
+norms, RoPE / M-RoPE, sinusoidal positions, GQA attention (windowed /
+softcapped / chunked online softmax, int8 KV cache) and GLU MLPs, all
+quantisation-aware (C1) and hard-activation-capable (C2).
 
 Attention is the reference's chunked online softmax in plain torch (a
 loop over q chunks, each scanning its kv blocks), with the same static
@@ -9,9 +10,13 @@ prefill never materialises a (T, S) score matrix.  It is not a kernel:
 the reference's model path computes it in ``jnp`` too, and its flash
 kernel (``kernels/flash_attention.py``) is not on that path.
 
-The quantised weight paths (``{"q","s"}`` serve weights, fake-quant
-matmuls) and the int8 KV cache are not ported yet: ``linear`` and
-``attn_apply`` raise where a config asks for them.
+``linear`` takes float weights or the ``{"q", "s"}`` int8 serve weights
+of ``transformer.quantize_model_params``: w8 dequantises the weight into
+the matmul; w8a8 quantises the activation per tensor and runs the int8 x
+int8 -> int32 product through the port's integer GEMM
+(``core.quant.int8_matmul``: the CUDA kernel K4 on the card, never a
+plain product there).  Fake-quant (QAT) matmuls belong to LM training
+and raise here.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hard_act import HARD_VARIANT, get_float_act
-from repro_torch.core.quant import QuantConfig
+from repro_torch.core.quant import QuantConfig, _p2_round_scale, int8_matmul
 from repro_torch.models.modules import Boxed, param
 
 Tensor = torch.Tensor
@@ -40,20 +45,33 @@ def act_fn(name: str, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Linear (float path)
+# Quantisation-aware linear
 # ---------------------------------------------------------------------------
 
 def linear(x: Tensor, w, quant: QuantConfig, mode: str = "train") -> Tensor:
-    """x @ w, contracting x's last dim with w's first; w's extra trailing
-    dims (e.g. (d, H, hd)) are flattened and restored.  The weight is cast
-    to x's dtype, as in the reference."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantised serve weights ({'q', 's'}) are not ported yet "
-            "(ROADMAP.md: quantize_model_params, w8/w8a8)")
+    """x @ w where w is a float tensor or a {"q", "s"} int8 dict (serve).
+    Contraction is over x's last dim and w's first; w's extra trailing
+    dims (e.g. (d, H, hd)) are flattened and restored.  The casts and
+    products follow the reference's order."""
+    if isinstance(w, dict):  # quantised serve weights
+        wq, ws = w["q"], w["s"]
+        shp = wq.shape
+        w2 = wq.reshape(shp[0], -1)
+        if quant.mode == "w8a8":
+            # dynamic per-tensor activation quant, int8 x int8 -> int32
+            s_x = x.abs().amax().clamp_min(1e-12) / 127.0
+            if quant.p2_scale:
+                s_x = _p2_round_scale(s_x)
+            xq = torch.clamp(torch.floor(x / s_x + 0.5), -128, 127).to(torch.int8)
+            acc = int8_matmul(xq, w2)
+            y = (acc.float() * s_x * ws.reshape(1, -1)).to(x.dtype)
+        else:  # w8: dequantise weights into the matmul
+            y = x @ (w2.to(x.dtype) * ws.reshape(1, -1).to(x.dtype))
+        return y.reshape(x.shape[:-1] + shp[1:])
     if mode == "train" and quant.enabled:
         raise NotImplementedError(
-            "fake-quant (QAT) matmuls are not ported yet (ROADMAP.md)")
+            "fake-quant (QAT) matmuls belong to LM training, which is not "
+            "ported yet (ROADMAP.md)")
     shp = w.shape
     y = x @ w.reshape(shp[0], -1).to(x.dtype)
     return y.reshape(x.shape[:-1] + shp[1:])
@@ -98,15 +116,36 @@ def _rope_angles(positions: Tensor, dim: int,
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float,
                mrope_sections: Optional[Tuple[int, ...]] = None) -> Tensor:
-    """x: (B, T, H, hd); positions: (B, T).  Rotates the two halves of hd."""
+    """x: (B, T, H, hd); positions: (B, T) or, for M-RoPE, (3, B, T).
+    Rotates the two halves of hd.
+
+    M-RoPE (Qwen2-VL): the head_dim's frequency slots are partitioned into
+    sections, each rotated by its own positional stream (temporal /
+    height / width)."""
+    hd = x.shape[-1]
     if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                                  "(ROADMAP.md)")
-    cos, sin = _rope_angles(positions, x.shape[-1], theta)   # (B, T, hd/2)
+        cos3, sin3 = _rope_angles(positions, hd, theta)  # (3, B, T, hd/2)
+        parts_c, parts_s = [], []
+        off = 0
+        for i, sec in enumerate(mrope_sections):
+            parts_c.append(cos3[i, ..., off:off + sec])
+            parts_s.append(sin3[i, ..., off:off + sec])
+            off += sec
+        cos, sin = torch.cat(parts_c, -1), torch.cat(parts_s, -1)
+    else:
+        cos, sin = _rope_angles(positions, hd, theta)    # (B, T, hd/2)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      -1).to(x.dtype)
+
+
+def sinusoidal_embedding(positions: Tensor, dim: int) -> Tensor:
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +184,12 @@ def _softcap(scores: Tensor, cap: Optional[float], hard: bool) -> Tensor:
 def _attn_q_chunk(qb: Tensor, qi: int, j_lo: int, kg: Tensor, vg: Tensor, *,
                   qc: int, kc: int, scale: float, softcap, hard_softcap: bool,
                   causal: bool, window: Optional[int], s_valid: int,
-                  q_offset: int) -> Tensor:
+                  q_offset: int, ksg: Optional[Tensor] = None,
+                  vsg: Optional[Tensor] = None) -> Tensor:
     """Online-softmax attention of ONE q chunk against kv blocks
     [j_lo, j_lo + kg.shape[1]).  qb: (B, qc, KV, g, hd); kg/vg:
-    (B, nj, kc, KV, hd).  Returns (B, qc, KV, g, hd) in fp32."""
+    (B, nj, kc, KV, hd); ksg/vsg: (B, nj, kc, KV) int8-KV scales or None.
+    Returns (B, qc, KV, g, hd) in fp32."""
     b, _, kvh, g, hd = qb.shape
     dev = qb.device
     qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
@@ -159,6 +200,8 @@ def _attn_q_chunk(qb: Tensor, qi: int, j_lo: int, kg: Tensor, vg: Tensor, *,
     for jj in range(kg.shape[1]):
         kpos = (j_lo + jj) * kc + torch.arange(kc, device=dev)
         sc = torch.einsum("bqkgh,bskh->bkgqs", qf, kg[:, jj].float()) * scale
+        if ksg is not None:
+            sc = sc * ksg[:, jj].transpose(1, 2)[:, :, None, None, :]
         sc = _softcap(sc, softcap, hard_softcap)
         mask = kpos[None, :] < s_valid
         if causal:
@@ -170,6 +213,8 @@ def _attn_q_chunk(qb: Tensor, qi: int, j_lo: int, kg: Tensor, vg: Tensor, *,
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
+        if vsg is not None:
+            p = p * vsg[:, jj].transpose(1, 2)[:, :, None, None, :]
         acc = acc * corr[..., None] + torch.einsum(
             "bkgqs,bskh->bkgqh", p, vg[:, jj].float())
         m = m_new
@@ -182,13 +227,18 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     softcap: Optional[float] = None, hard_softcap: bool = False,
                     scale: float = 1.0, q_offset: int = 0,
                     q_chunk: int = 512, kv_chunk: int = 1024,
-                    kv_valid_len: Optional[int] = None) -> Tensor:
+                    kv_valid_len: Optional[int] = None,
+                    k_scale: Optional[Tensor] = None,
+                    v_scale: Optional[Tensor] = None) -> Tensor:
     """Chunked online-softmax attention.
 
     q: (B, T, H, hd); k, v: (B, S, KV, hd); GQA via head grouping.  Key s
     is kept for query t when ``s < kv_valid_len``, ``s <= t`` (causal,
-    positions offset by ``q_offset``) and ``t - s < window``.  Returns
-    (B, T, H, hd) in q's dtype, accumulated in fp32."""
+    positions offset by ``q_offset``) and ``t - s < window``.
+    k_scale/v_scale (B, S, KV): int8-KV dequantisation scales — k's folds
+    into the scores, v's into the softmax weights, so the cache is only
+    read as int8.  Returns (B, T, H, hd) in q's dtype, accumulated in
+    fp32."""
     b, t, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -200,6 +250,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if sp:
         k = F.pad(k, (0, 0, 0, 0, 0, sp))
         v = F.pad(v, (0, 0, 0, 0, 0, sp))
+        if k_scale is not None:
+            k_scale = F.pad(k_scale, (0, 0, 0, sp))
+            v_scale = F.pad(v_scale, (0, 0, 0, sp))
     nq, nk = (t + tp) // qc, (s + sp) // kc
     qg = q.reshape(b, nq, qc, kvh, g, hd)
     kg = k.reshape(b, nk, kc, kvh, hd)
@@ -207,12 +260,15 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     kw = dict(qc=qc, kc=kc, scale=scale, softcap=softcap,
               hard_softcap=hard_softcap, window=window,
               s_valid=s if kv_valid_len is None else kv_valid_len)
+    if k_scale is not None:
+        kw.update(ksg=k_scale.reshape(b, nk, kc, kvh),
+                  vsg=v_scale.reshape(b, nk, kc, kvh))
 
     # Causal-triangle path (prefill: t == s, no offset): per-q-chunk static
     # kv bounds skip the strictly-future blocks, and a sliding window also
     # skips the wholly expired past ones.
     if (causal and t == s and tp == 0 and sp == 0 and q_offset == 0
-            and kv_valid_len is None):
+            and kv_valid_len is None and k_scale is None):
         outs = []
         for qi in range(nq):
             j_hi = ((qi + 1) * qc + kc - 1) // kc
@@ -228,6 +284,14 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     return out[:, :t].to(q.dtype)
 
 
+def _q8(t: Tensor) -> Tuple[Tensor, Tensor]:
+    """(B, 1, KV, hd) f32 -> int8 codes and (B, 1, KV) f32 scales, one
+    scale per (token, head), rounded half up."""
+    s_ = t.abs().amax(-1).clamp_min(1e-6) / 127.0
+    tq = torch.clamp(torch.floor(t / s_[..., None] + 0.5), -128, 127)
+    return tq.to(torch.int8), s_
+
+
 def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
                cfg: ModelConfig, window: Optional[int] = None,
                mode: str = "train", cache: Optional[Dict[str, Tensor]] = None,
@@ -238,7 +302,9 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
     train/prefill: full-sequence causal (chunked), returns y.  decode: x is
     (B, 1, d); the cache {"k", "v"}, each (B, Smax, KV, hd), is written at
     ``cache_pos`` (``cache_pos % ring_window`` for a ring-buffer cache) into
-    a new tensor; returns (y, new_cache)."""
+    a new tensor; returns (y, new_cache).  An int8 cache also holds
+    {"k_scale", "v_scale"}, each (B, Smax, KV): each new token's k and v
+    are stored as per-(token, head) symmetric int8 with their scales."""
     a = cfg.attn
     scale = (a.query_scale or cfg.head_dim ** -0.5) if a else cfg.head_dim ** -0.5
     q = linear(x, p["wq"], cfg.quant, mode)
@@ -254,21 +320,28 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
     softcap = a.attn_softcap if a else None
 
     if mode == "decode":
-        if cache["k"].dtype == torch.int8:
-            raise NotImplementedError("the int8 KV cache is not ported yet "
-                                      "(ROADMAP.md)")
         st = dict(cache)
         slot = cache_pos % ring_window if ring_window else cache_pos
         idx = torch.tensor([slot], device=x.device)
-        st["k"] = st["k"].index_copy(1, idx, k.to(st["k"].dtype))
-        st["v"] = st["v"].index_copy(1, idx, v.to(st["v"].dtype))
+        kscale = vscale = None
+        if st["k"].dtype == torch.int8:
+            # C1 on the cache: per-(token, head) symmetric int8
+            kq, ks_new = _q8(k.float())
+            vq, vs_new = _q8(v.float())
+            st["k"] = st["k"].index_copy(1, idx, kq)
+            st["v"] = st["v"].index_copy(1, idx, vq)
+            st["k_scale"] = kscale = st["k_scale"].index_copy(1, idx, ks_new)
+            st["v_scale"] = vscale = st["v_scale"].index_copy(1, idx, vs_new)
+        else:
+            st["k"] = st["k"].index_copy(1, idx, k.to(st["k"].dtype))
+            st["v"] = st["v"].index_copy(1, idx, v.to(st["v"].dtype))
         s_cache = st["k"].shape[1]
         out = flash_attention(
             q, st["k"], st["v"], causal=False,
             window=None if ring_window else window, softcap=softcap,
             hard_softcap=cfg.hard_acts, scale=scale, q_offset=cache_pos,
             kv_valid_len=min(cache_pos + 1, s_cache), q_chunk=1,
-            kv_chunk=min(4096, s_cache))
+            kv_chunk=min(4096, s_cache), k_scale=kscale, v_scale=vscale)
         y = linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
         return y, st
 

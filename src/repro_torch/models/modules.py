@@ -51,17 +51,22 @@ def tree_leaves(tree):
     return [tree]
 
 
-def param(gen: torch.Generator, shape, axes, scale: Optional[float] = None,
-          dtype: torch.dtype = torch.float32, init: str = "normal") -> Boxed:
+def param(gen: Optional[torch.Generator], shape, axes,
+          scale: Optional[float] = None, dtype: torch.dtype = torch.float32,
+          init: str = "normal") -> Boxed:
     """One parameter leaf on ``gen``'s device, with its logical axes.
 
     ``init`` "zeros" / "ones" draw nothing; "normal" is a standard normal
     times ``scale``, by default fan-in scaling on the contracting dim
-    (``shape[-2]`` for two or more dims, else ``shape[-1]``)."""
+    (``shape[-2]`` for two or more dims, else ``shape[-1]``).  With
+    ``gen=None`` the leaf is a shape-only tensor on the ``meta`` device
+    (nothing is allocated or drawn)."""
     shape = tuple(shape)
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in rank")
-    if init == "zeros":
+    if gen is None:
+        v = torch.empty(shape, dtype=dtype, device="meta")
+    elif init == "zeros":
         v = torch.zeros(shape, dtype=dtype, device=gen.device)
     elif init == "ones":
         v = torch.ones(shape, dtype=dtype, device=gen.device)

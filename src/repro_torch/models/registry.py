@@ -1,14 +1,13 @@
-"""--arch registry — counterpart of ``repro/models/registry.py``, over the
-port's ``ARCH_CONFIGS`` (the architectures whose family it runs)."""
+"""--arch registry: name -> (ModelConfig | QLSTMConfig) — counterpart of
+``repro/models/registry.py``."""
 from __future__ import annotations
 
 from repro_torch.configs import ARCH_CONFIGS
-from repro_torch.configs.base import ModelConfig
 
 
-def get_config(name: str) -> ModelConfig:
-    """The ported config of ``name``; a ``KeyError`` says whether the
-    reference has it but the port does not run it yet."""
+def get_config(name: str):
+    if name not in ARCH_CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCH_CONFIGS)}")
     return ARCH_CONFIGS[name]
 
 

@@ -1,19 +1,26 @@
-"""Decoder-only LM — counterpart of ``repro/models/transformer.py``, for
-the hybrid family (RecurrentGemma: the (rec, rec, attn) pattern grouped
-into full periods plus a homogeneous tail of rec layers).
+"""Generic decoder-only LM covering every architecture of the reference —
+counterpart of ``repro/models/transformer.py``.
+
+Composition rules (from ModelConfig), as in the reference:
+  * families dense/moe/vlm/audio — a homogeneous stack of attention blocks
+    (``blocks``, every leaf stacked over ``n_layers``), with per-layer
+    attention windows (gemma2's local/global alternation, mixtral's SWA);
+  * family ssm (RWKV-6) — the rwkv time-mix mixer + channel-mix "MLP";
+  * family hybrid (RecurrentGemma) — the (rec, rec, attn) pattern grouped
+    into full periods (``groups[j]`` holds pattern position j's leaves
+    with a leading axis over the periods) plus a homogeneous ``tail``.
 
 The params keep the reference's stacked layout, so carrying weights
-across is a plain map of leaves: ``groups[j]`` holds pattern position
-j's leaves with a leading axis over the ``full`` periods, and ``tail`` is
-a list of stacks.  A Python loop over periods and layers takes the place
-of the reference's ``scan``.  The homogeneous families (dense, MoE, SSM)
-raise ``NotImplementedError``: they are later slices (ROADMAP.md).
+across is a plain map of leaves; a Python loop over layers takes the
+place of the reference's ``scan``.
 
 Entry points:
   init_model      -> (params, axes)
+  num_params / num_active_params -> analytic counts (nothing allocated)
   forward_prefill -> last-token logits of a full sequence
-  init_cache      -> decode cache (rec state f32/bf16, KV bf16)
+  init_cache      -> decode cache (KV bf16 or int8 + scales, rec / rwkv state)
   forward_decode  -> one-token serve step against the cache
+  quantize_model_params -> W8/W8A8 serve weights (C1 at LM scale)
 """
 
 from __future__ import annotations
@@ -23,20 +30,17 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import quantize_tensor
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv6 as RW
 from repro_torch.models.modules import param, tree_index, tree_leaves, unbox
 
 Tensor = torch.Tensor
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _not_ported(cfg: ModelConfig):
-    return NotImplementedError(
-        f"the {cfg.family!r} family ({cfg.name}) is not ported yet: "
-        f"repro_torch runs the hybrid family; see ROADMAP.md §1 (LM side: "
-        f"dense qwen1.5-0.5B, MoE, RWKV-6)")
+_NO_WINDOW = (1 << 31) - 1
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -47,7 +51,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+def _init_block(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
                 stack: Tuple[int, ...]):
     """One block kind's params, stacked over `stack` layers."""
     blk: Dict[str, Any] = {
@@ -61,34 +65,57 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
         blk["mixer"] = L.init_attn(gen, cfg, stack)
     elif kind == "rec":
         blk["mixer"] = RG.init_rglru_block(gen, cfg, stack)
-    else:
-        raise _not_ported(cfg)
+    elif kind == "rwkv":
+        rw = RW.init_rwkv_block(gen, cfg, stack)
+        blk["mixer"] = {k: v for k, v in rw.items() if not k.startswith("cm_")}
+        blk["mlp"] = {k: v for k, v in rw.items() if k.startswith("cm_")}
+        return blk
     if cfg.moe is not None:
-        raise _not_ported(cfg)
-    blk["mlp"] = L.init_mlp(gen, cfg, stack)
+        blk["mlp"] = MOE.init_moe(gen, cfg, stack)
+    else:
+        blk["mlp"] = L.init_mlp(gen, cfg, stack)
     return blk
 
 
-def init_model(cfg: ModelConfig, gen: torch.Generator) -> Tuple[Any, Any]:
+def init_model(cfg: ModelConfig,
+               gen: Optional[torch.Generator]) -> Tuple[Any, Any]:
     """Returns (params, logical_axes) twin trees; the float32 master
-    params are drawn from ``gen`` on its device."""
-    if cfg.family != "hybrid":
-        raise _not_ported(cfg)
+    params are drawn from ``gen`` on its device (``gen=None``: shape-only
+    tensors on the ``meta`` device)."""
     tree: Dict[str, Any] = {}
     tree["embed"] = param(gen, (cfg.vocab_size, cfg.d_model),
                           ("vocab", "embed"), scale=1.0)
-    pat = cfg.recurrent.block_pattern
-    full = cfg.n_layers // len(pat)
-    tail = cfg.n_layers - full * len(pat)
-    if not all(k == pat[0] for k in pat[:tail]):
-        raise ValueError("the tail of the block pattern must be homogeneous")
-    tree["groups"] = [_init_block(gen, cfg, kind, (full,)) for kind in pat]
-    tree["tail"] = [_init_block(gen, cfg, pat[0], (tail,))] if tail else []
+    if cfg.family == "hybrid":
+        pat = cfg.recurrent.block_pattern
+        full = cfg.n_layers // len(pat)
+        tail = cfg.n_layers - full * len(pat)
+        if not all(k == pat[0] for k in pat[:tail]):
+            raise ValueError("the tail of the block pattern must be homogeneous")
+        tree["groups"] = [_init_block(gen, cfg, kind, (full,)) for kind in pat]
+        tree["tail"] = [_init_block(gen, cfg, pat[0], (tail,))] if tail else []
+    else:
+        tree["blocks"] = _init_block(gen, cfg, cfg.layer_kinds()[0],
+                                     (cfg.n_layers,))
     tree["final_norm"] = L.init_norm(gen, cfg)
     if not cfg.tie_embeddings:
         tree["lm_head"] = param(gen, (cfg.d_model, cfg.vocab_size),
                                 ("embed", "vocab"), scale=cfg.d_model ** -0.5)
     return unbox(tree)
+
+
+def num_params(cfg: ModelConfig) -> int:
+    """Analytic parameter count (no allocation)."""
+    return sum(x.numel() for x in tree_leaves(init_model(cfg, None)[0]))
+
+
+def num_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top_k experts count)."""
+    n = num_params(cfg)
+    if cfg.moe is None:
+        return n
+    m = cfg.moe
+    per_layer_expert = 3 * cfg.d_model * m.d_ff
+    return n - cfg.n_layers * (m.num_experts - m.top_k) * per_layer_expert
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +128,9 @@ def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
                  ring_window=None):
     """Residual block: norm -> mixer -> (+), norm -> mlp -> (+).
 
-    Returns (x, new_state); new_state is None outside decode.  (The
-    reference also returns the MoE auxiliary loss, always 0 here.)"""
+    Returns (x, aux, new_state): aux is the MoE auxiliary loss (0.0 for
+    other blocks), new_state None outside decode."""
+    aux = 0.0
     h = L.norm_apply(p["ln1"], x, cfg)
     new_state = None
     if kind == "attn":
@@ -119,42 +147,69 @@ def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
             h, new_state = RG.rec_block_apply(p["mixer"], h, cfg, mode, state)
         else:
             h = RG.rec_block_apply(p["mixer"], h, cfg, mode)
-    else:
-        raise _not_ported(cfg)
+    elif kind == "rwkv":
+        if mode == "decode":
+            h, tm_state = RW.time_mix_apply(p["mixer"], h, cfg, mode,
+                                            {"tm_shift": state["tm_shift"],
+                                             "wkv": state["wkv"]})
+            new_state = dict(tm_state)
+        else:
+            h = RW.time_mix_apply(p["mixer"], h, cfg, mode)
     if cfg.post_norms:
         h = L.norm_apply(p["ln1_post"], h, cfg)
     x = x + h.to(x.dtype)
 
-    h = L.mlp_apply(p["mlp"], L.norm_apply(p["ln2"], x, cfg), cfg, mode)
+    h = L.norm_apply(p["ln2"], x, cfg)
+    if kind == "rwkv":
+        if mode == "decode":
+            h, cm_state = RW.channel_mix_apply(p["mlp"], h, cfg, mode,
+                                               {"cm_shift": state["cm_shift"]})
+            new_state.update(cm_state)
+        else:
+            h = RW.channel_mix_apply(p["mlp"], h, cfg, mode)
+    elif cfg.moe is not None:
+        h, aux = MOE.moe_apply(p["mlp"], h, cfg, mode)
+    else:
+        h = L.mlp_apply(p["mlp"], h, cfg, mode)
     if cfg.post_norms:
         h = L.norm_apply(p["ln2_post"], h, cfg)
-    return x + h.to(x.dtype), new_state
+    return x + h.to(x.dtype), aux, new_state
 
 
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def _embed(params, batch: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+def _embed(params, batch: Dict[str, Tensor], cfg: ModelConfig,
+           positions: Optional[Tensor] = None) -> Tensor:
+    dt = _dtype(cfg)
     if "inputs_embeds" in batch:
-        h = batch["inputs_embeds"].to(_dtype(cfg))
+        h = batch["inputs_embeds"].to(dt)
     else:
-        h = params["embed"][batch["tokens"]].to(_dtype(cfg))
+        emb = params["embed"]
+        if isinstance(emb, dict):  # quantised embedding
+            h = emb["q"][batch["tokens"]].to(dt) * emb["s"].to(dt)
+        else:
+            h = emb[batch["tokens"]].to(dt)
     if cfg.norm == "gemma_rmsnorm":
         # sqrt(d) rounded to the activation dtype first, as the reference
         # does (bf16: sqrt(2560) = 50.596 -> 50.5).
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     if cfg.attn and cfg.attn.sinusoidal:
-        raise NotImplementedError("sinusoidal positions (musicgen) are not "
-                                  "ported yet (ROADMAP.md)")
+        h = h + L.sinusoidal_embedding(positions, cfg.d_model).to(h.dtype)
     return h
 
 
 def _logits(params, h: Tensor, cfg: ModelConfig) -> Tensor:
     if cfg.tie_embeddings:
-        logits = h @ params["embed"].to(h.dtype).T
+        emb = params["embed"]
+        w = (emb["q"].to(h.dtype) * emb["s"].to(h.dtype)).T \
+            if isinstance(emb, dict) else emb.to(h.dtype).T
+        logits = h @ w
     else:
-        logits = L.linear(h, params["lm_head"], cfg.quant)
+        logits = L.linear(h, params["lm_head"], cfg.quant,
+                          "serve" if isinstance(params["lm_head"], dict)
+                          else "train")
     logits = logits.float()
     if cfg.final_softcap:
         cap = cfg.final_softcap
@@ -170,26 +225,39 @@ def _positions_for(batch, b: int, s: int, device=None) -> Tensor:
 
 
 def _run_blocks(params, h: Tensor, cfg: ModelConfig, positions: Tensor,
-                mode: str) -> Tensor:
-    """The layer stack over a full sequence (train/prefill)."""
-    if cfg.family != "hybrid":
-        raise _not_ported(cfg)
+                mode: str):
+    """The layer stack(s) over a full sequence (train/prefill); returns
+    (h, summed MoE aux loss)."""
     seq = h.shape[1]
-    pat = cfg.recurrent.block_pattern
-    full = cfg.n_layers // len(pat)
-    attn_win = min(cfg.layer_windows(seq), default=seq)
-    attn_win = None if attn_win >= seq else int(attn_win)
-    for period in range(full):
-        for j, kind in enumerate(pat):
-            h, _ = _block_apply(tree_index(params["groups"][j], period), h,
-                                kind, cfg, positions=positions,
-                                window=attn_win if kind == "attn" else None,
-                                mode=mode)
-    for p in params["tail"]:
-        for layer in range(tree_leaves(p)[0].shape[0]):
-            h, _ = _block_apply(tree_index(p, layer), h, pat[0], cfg,
-                                positions=positions, mode=mode)
-    return h
+    aux_total = 0.0
+    if cfg.family == "hybrid":
+        pat = cfg.recurrent.block_pattern
+        full = cfg.n_layers // len(pat)
+        attn_win = min(cfg.layer_windows(seq), default=seq)
+        attn_win = None if attn_win >= seq else int(attn_win)
+        for period in range(full):
+            for j, kind in enumerate(pat):
+                h, aux, _ = _block_apply(
+                    tree_index(params["groups"][j], period), h, kind, cfg,
+                    positions=positions,
+                    window=attn_win if kind == "attn" else None, mode=mode)
+                aux_total = aux_total + aux
+        for p in params["tail"]:
+            for layer in range(tree_leaves(p)[0].shape[0]):
+                h, aux, _ = _block_apply(tree_index(p, layer), h, pat[0], cfg,
+                                         positions=positions, mode=mode)
+                aux_total = aux_total + aux
+        return h, aux_total
+    kind = cfg.layer_kinds()[0]
+    windows = [None] * cfg.n_layers
+    if kind == "attn":  # SWA / gemma2's local/global alternation
+        windows = [None if w >= seq else int(w) for w in cfg.layer_windows(seq)]
+    for layer in range(cfg.n_layers):
+        h, aux, _ = _block_apply(tree_index(params["blocks"], layer), h, kind,
+                                 cfg, positions=positions,
+                                 window=windows[layer], mode=mode)
+        aux_total = aux_total + aux
+    return h, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -202,8 +270,8 @@ def forward_prefill(params, batch: Dict[str, Tensor],
     tokens_or_embeds = batch.get("tokens", batch.get("inputs_embeds"))
     b, s = tokens_or_embeds.shape[:2]
     positions = _positions_for(batch, b, s, device=tokens_or_embeds.device)
-    h = _embed(params, batch, cfg)
-    h = _run_blocks(params, h, cfg, positions, "prefill")
+    h = _embed(params, batch, cfg, positions)
+    h, _ = _run_blocks(params, h, cfg, positions, "prefill")
     h = L.norm_apply(params["final_norm"], h, cfg)
     return _logits(params, h[:, -1:], cfg)
 
@@ -215,26 +283,34 @@ def cache_spec(cfg: ModelConfig, batch: int,
     not need.
 
     The attention KV cache is bounded by the window when every attention
-    layer is windowed (a ring buffer in decode).  KV and the conv state
-    are bf16 and the recurrent h f32, whatever the activation dtype."""
-    if cfg.quant.quantize_kv:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP.md)")
+    layer is windowed (a ring buffer in decode).  KV is bf16, or int8 with
+    f32 per-(token, head) scales when ``cfg.quant.quantize_kv``; the conv
+    and token-shift states are bf16 and the recurrent states f32, whatever
+    the activation dtype."""
     kinds = cfg.layer_kinds()
     specs = {}
     n_attn = sum(k == "attn" for k in kinds)
     if n_attn:
         s_cache = max(cfg.layer_windows(seq_len))
         kv_shape = (n_attn, batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
-        specs["k"] = (kv_shape, torch.bfloat16)
-        specs["v"] = (kv_shape, torch.bfloat16)
+        kv_dtype = torch.int8 if cfg.quant.quantize_kv else torch.bfloat16
+        specs["k"] = (kv_shape, kv_dtype)
+        specs["v"] = (kv_shape, kv_dtype)
+        if cfg.quant.quantize_kv:
+            specs["k_scale"] = (kv_shape[:-1], torch.float32)
+            specs["v_scale"] = (kv_shape[:-1], torch.float32)
     n_rec = sum(k == "rec" for k in kinds)
     if n_rec:
         w, cw = cfg.recurrent.lru_width, cfg.recurrent.conv_width
         specs["rec_h"] = ((n_rec, batch, w), torch.float32)
         specs["rec_conv"] = ((n_rec, batch, cw - 1, w), torch.bfloat16)
-    if any(k == "rwkv" for k in kinds):
-        raise _not_ported(cfg)
+    n_rwkv = sum(k == "rwkv" for k in kinds)
+    if n_rwkv:
+        hd = cfg.rwkv.head_dim
+        nh = cfg.d_model // hd
+        specs["wkv"] = ((n_rwkv, batch, nh, hd, hd), torch.float32)
+        specs["tm_shift"] = ((n_rwkv, batch, cfg.d_model), torch.bfloat16)
+        specs["cm_shift"] = ((n_rwkv, batch, cfg.d_model), torch.bfloat16)
     return specs
 
 
@@ -246,21 +322,24 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 # block kind -> (state key, cache key) pairs
 _STATE_KEYS = {
-    "attn": (("k", "k"), ("v", "v")),
+    "attn": (("k", "k"), ("v", "v"), ("k_scale", "k_scale"),
+             ("v_scale", "v_scale")),
     "rec": (("h", "rec_h"), ("conv", "rec_conv")),
+    "rwkv": (("wkv", "wkv"), ("tm_shift", "tm_shift"), ("cm_shift", "cm_shift")),
 }
 
 
 def _state_slice(cache, kind: str, i: int) -> Dict[str, Tensor]:
     """Layer ``i``'s state of kind ``kind`` (views into the cache)."""
-    return {sk: cache[ck][i] for sk, ck in _STATE_KEYS[kind]}
+    return {sk: cache[ck][i] for sk, ck in _STATE_KEYS[kind] if ck in cache}
 
 
 def _state_write(new_cache, kind: str, i: int, ns: Dict[str, Tensor]):
     """Write layer ``i``'s new state into ``new_cache`` in place, cast to
     the cache's dtypes."""
     for sk, ck in _STATE_KEYS[kind]:
-        new_cache[ck][i] = ns[sk]
+        if ck in new_cache:
+            new_cache[ck][i] = ns[sk]
 
 
 def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
@@ -268,27 +347,48 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
     """One serve step: one new token per sequence against the cache.
 
     ``batch["cache_pos"]`` is the step's position (an int or a 0-dim
-    tensor).  Cache layout as in the reference: the attention cache is
-    ordered by period; the rec states by (pattern position, period), then
-    the tail.  Returns (logits (B, 1, V) float32, new cache); the cache
-    passed in is left as it was."""
-    if cfg.family != "hybrid":
-        raise _not_ported(cfg)
+    tensor).  Cache layout as in the reference: homogeneous families stack
+    every state over the layers; for the hybrid family the attention cache
+    is ordered by period, the rec states by (pattern position, period),
+    then the tail.  As in the reference, a homogeneous family's new states
+    replace the cache's entries whole, in the dtype the block returns (a
+    token shift is the activation's dtype), while the hybrid family's are
+    written into the cache's dtypes.  Returns (logits (B, 1, V) float32,
+    new cache); the cache passed in is left as it was."""
     cache_pos = int(batch["cache_pos"])
     tokens_or_embeds = batch.get("tokens", batch.get("inputs_embeds"))
     b = tokens_or_embeds.shape[0]
     dev = tokens_or_embeds.device
     positions = (batch["position_ids"] if "position_ids" in batch
                  else torch.full((b, 1), cache_pos, device=dev))
-    h = _embed(params, batch, cfg)
-    new_cache = {k: v.clone() for k, v in cache.items()}
+    h = _embed(params, batch, cfg, positions)
     seq_budget = cache["k"].shape[2] if "k" in cache else None
     ring = (seq_budget if (cfg.uniform_window and
                            seq_budget == cfg.uniform_window) else None)
 
+    if cfg.family != "hybrid":
+        kind = cfg.layer_kinds()[0]
+        wins = ([min(w, _NO_WINDOW) for w in cfg.layer_windows(1 << 60)]
+                if kind == "attn" else [None] * cfg.n_layers)
+        states = []
+        for layer in range(cfg.n_layers):
+            h, _, ns = _block_apply(
+                tree_index(params["blocks"], layer), h, kind, cfg,
+                positions=positions, window=wins[layer], mode="decode",
+                state=_state_slice(cache, kind, layer), cache_pos=cache_pos,
+                ring_window=ring)
+            states.append(ns)
+        new_cache = dict(cache)
+        for sk, ck in _STATE_KEYS[kind]:
+            if ck in cache:
+                new_cache[ck] = torch.stack([ns[sk] for ns in states])
+        h = L.norm_apply(params["final_norm"], h, cfg)
+        return _logits(params, h, cfg), new_cache
+
+    new_cache = {k: v.clone() for k, v in cache.items()}
     pat = cfg.recurrent.block_pattern
     full = cfg.n_layers // len(pat)
-    win = cfg.attn.window or ((1 << 31) - 1)
+    win = cfg.attn.window or _NO_WINDOW
     n_rec_pos = sum(k == "rec" for k in pat)
     for period in range(full):
         rj = aj = 0
@@ -297,7 +397,7 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
                 i, rj = rj * full + period, rj + 1
             else:
                 i, aj = aj * full + period, aj + 1
-            h, ns = _block_apply(
+            h, _, ns = _block_apply(
                 tree_index(params["groups"][j], period), h, kind, cfg,
                 positions=positions, window=win if kind == "attn" else None,
                 mode="decode", state=_state_slice(cache, kind, i),
@@ -306,11 +406,64 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
     lo = n_rec_pos * full
     for p in params["tail"]:
         for layer in range(tree_leaves(p)[0].shape[0]):
-            h, ns = _block_apply(tree_index(p, layer), h, "rec", cfg,
-                                 positions=positions, mode="decode",
-                                 state=_state_slice(cache, "rec", lo),
-                                 cache_pos=cache_pos)
+            h, _, ns = _block_apply(tree_index(p, layer), h, "rec", cfg,
+                                    positions=positions, mode="decode",
+                                    state=_state_slice(cache, "rec", lo),
+                                    cache_pos=cache_pos)
             _state_write(new_cache, "rec", lo, ns)
             lo += 1
     h = L.norm_apply(params["final_norm"], h, cfg)
     return _logits(params, h, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# serve-time quantisation (C1 at LM scale)
+# ---------------------------------------------------------------------------
+
+# leaves kept in full precision: norms, biases, gates'/decays' small tensors,
+# ddlerp/LoRA params, the MoE router, depthwise conv — the reference's lists.
+_QUANT_EXCLUDE_EXACT = frozenset(
+    {"u", "w0", "lam", "mu", "mu_x", "cm_mu_r", "cm_mu_k", "conv_w", "conv_b",
+     "ln_x", "router", "b", "b_a", "b_i"})
+_QUANT_EXCLUDE_PREFIX = ("ln", "b_", "bq", "bk", "bv", "lora", "wl_", "bias",
+                         "final_norm")
+
+
+def _quantizable(path: str, x) -> bool:
+    if not isinstance(x, torch.Tensor) or x.ndim < 2:
+        return False
+    if not x.is_floating_point():
+        return False
+    leaf = path.split("/")[-1]
+    if leaf in _QUANT_EXCLUDE_EXACT:
+        return False
+    return not any(leaf.startswith(e) for e in _QUANT_EXCLUDE_PREFIX)
+
+
+def quantize_model_params(params, axes, cfg: ModelConfig):
+    """Replace weight leaves with {"q": int8, "s": f32 scale}: per-out-
+    channel, power-of-two scales when ``cfg.quant.p2_scale`` (the paper's
+    shift-requant, C1), reduced over the contraction dim — the first dim
+    after any leading ``layers``/``experts`` dims, which ``linear``
+    contracts — so each layer, expert and output channel keeps its own
+    scale, e.g. (L, d, H, hd) -> scale (L, 1, H, hd).  Returns (params,
+    axes) twin trees for serving."""
+
+    def walk(p, a, path=""):
+        if isinstance(p, dict):
+            pairs = {k: walk(p[k], a[k], f"{path}/{k}") for k in p}
+            return ({k: v[0] for k, v in pairs.items()},
+                    {k: v[1] for k, v in pairs.items()})
+        if isinstance(p, list):
+            pairs = [walk(x, y, f"{path}/{i}") for i, (x, y) in enumerate(zip(p, a))]
+            return [x for x, _ in pairs], [y for _, y in pairs]
+        if _quantizable(path, p):
+            c = 0
+            while c < p.ndim - 1 and a[c] in ("layers", "experts"):
+                c += 1
+            qt = quantize_tensor(p, axis=(c,), p2=cfg.quant.p2_scale)
+            s_axes = tuple(a[i] if i != c else None for i in range(p.ndim))
+            return {"q": qt.values, "s": qt.scale}, {"q": a, "s": s_axes}
+        return p, a
+
+    return walk(params, axes)

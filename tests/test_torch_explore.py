@@ -35,6 +35,7 @@ from repro_torch.convert import params_from_reference
 from repro_torch.core.accelerator import AcceleratorConfig
 from repro_torch.core.fixed_point import FXP_4_8, FXP_8_16, FixedPointConfig
 from repro_torch.core.qlstm import QLSTMConfig
+from repro_torch.explore import measure as explore_measure
 from repro_torch.explore.space import point_from_config
 from repro_torch.training.tree import tree_leaves
 
@@ -714,21 +715,48 @@ def test_halving_without_scenario_is_rejected():
 SERVING_SLO = "p99_ms<=60000"
 HALVING = dict(objective="samples_per_s", constraint=SERVING_SLO, eta=2,
                seed=0, strategy="halving")
+# 64 streams: at rung 0 batch 1 serves 128 one-window waves and batch 16
+# eight full ones, so batch 16 leads by an order of magnitude in both
+# packages (8-20x on the CPU) and a host stall must last as long as the
+# whole batch-1 run to swap them; with 3 streams (3 windows a wave) the
+# lead was 1.4-3.5x and a loaded host swapped it.
+HALVING_STREAMS = 64
 
 
 def _halving(pkg, **kw):
     space = pkg.SearchSpace(backend="xla", batch=(1, 16), hidden_size=8,
                             num_layers=1)
-    scenario = pkg.ServingScenario(streams=3, windows_per_stream=3,
+    scenario = pkg.ServingScenario(streams=HALVING_STREAMS, windows_per_stream=3,
                                    deadline_ms=60000.0, name="t")
     return pkg.sweep(space, scenario=scenario, **HALVING, **kw)
 
 
+def _scenario_key(point, scenario):
+    return point.label, json.dumps(scenario.asdict(), sort_keys=True)
+
+
 @pytest.fixture(scope="module")
-def halving_payload():
+def halving_run():
     """One shared serving halving sweep over a 2-point space whose ranking
-    is robust (batch 1 vs 16 differ by an order of magnitude)."""
-    return _halving(explore, device=DEV)
+    is robust (batch 1 vs 16 differ by an order of magnitude), and every
+    measurement it took: its metrics by (point, truncated scenario)."""
+    measured = {}
+    real = explore_measure.evaluate_serving_point
+
+    def recording(point, scenario, *a, **kw):
+        row = real(point, scenario, *a, **kw)
+        measured[_scenario_key(point, scenario)] = dict(row["metrics"])
+        return row
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(explore_measure, "evaluate_serving_point", recording)
+        payload = _halving(explore, device=DEV)
+    return payload, measured
+
+
+@pytest.fixture(scope="module")
+def halving_payload(halving_run):
+    return halving_run[0]
 
 
 def test_serving_sweep_schema_v2(halving_payload):
@@ -736,7 +764,7 @@ def test_serving_sweep_schema_v2(halving_payload):
     assert p["schema_version"] == 2
     assert p["strategy"] == "halving"
     assert p["constraint"] == "p99_ms<=60000"
-    assert p["scenario"]["streams"] == 3
+    assert p["scenario"]["streams"] == HALVING_STREAMS
     assert p["objective"] == "samples_per_s"
     tr = p["halving"]
     assert tr["sizes"] == [2, 1]
@@ -809,10 +837,28 @@ def test_serving_autotune_impossible_slo_names_it(halving_payload):
                          constraint="p99_ms<=0.0001", device=DEV)
 
 
-def test_serving_halving_same_seed_identical_traces(halving_payload):
-    """A second same-seed sweep reproduces the rung-promotion trace and
-    picks the same config."""
+def test_serving_halving_same_seed_identical_traces(halving_run, monkeypatch):
+    """A second same-seed sweep, given the same measurements, reproduces
+    the rung-promotion trace and picks the same config.
+
+    Its servers run again, and each measurement it takes is replaced by
+    the first sweep's for the same point and rung: two live runs are not
+    the same measurement, and under a loaded host the two points' rung-0
+    samples/s, read off the wall clock, can swap their ranking (then the
+    promotion trace differs first, and the winner and front with it)."""
+    halving_payload, measured = halving_run
+    real = explore_measure.evaluate_serving_point
+    replayed = []
+
+    def replay(point, scenario, *a, **kw):
+        row = real(point, scenario, *a, **kw)
+        row["metrics"] = dict(measured[_scenario_key(point, scenario)])
+        replayed.append(_scenario_key(point, scenario))
+        return row
+
+    monkeypatch.setattr(explore_measure, "evaluate_serving_point", replay)
     p2 = _halving(explore, device=DEV)
+    assert sorted(replayed) == sorted(measured)
     strip = lambda tr: [(r["rung"], r["fraction"], r["measured"],  # noqa: E731
                          r["promoted"]) for r in tr["rungs"]]
     assert strip(p2["halving"]) == strip(halving_payload["halving"])

@@ -85,16 +85,24 @@ def test_config_matches_reference(reduced):
         {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
 
 
-def test_registry_and_unported_archs():
-    assert registry.list_archs() == [ARCH]
-    assert registry.get_config(ARCH) is ARCH_CONFIGS[ARCH]
-    with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("qwen1.5-0.5b")
+@pytest.mark.usefixtures("ref")
+def test_registry_resolves_every_arch():
+    """All eleven of the reference's archs resolve, in its order, and
+    every LM arch's published and reduced configs equal the reference's."""
+    from repro.configs import ASSIGNED_ARCHS as J_ASSIGNED
+    from repro_torch.configs import ASSIGNED_ARCHS
+    assert list(ARCH_CONFIGS) == list(J_ARCHS) and len(ARCH_CONFIGS) == 11
+    assert ASSIGNED_ARCHS == J_ASSIGNED
+    assert registry.list_archs() == sorted(J_ARCHS)
+    for name in J_ARCHS:
+        assert registry.get_config(name) is ARCH_CONFIGS[name]
+    for name in ASSIGNED_ARCHS:
+        j, t = J_ARCHS[name], ARCH_CONFIGS[name]
+        assert dataclasses.asdict(t) == dataclasses.asdict(j), name
+        assert dataclasses.asdict(reduce_config(t)) == \
+            dataclasses.asdict(j_reduce(j)), name
     with pytest.raises(KeyError, match="unknown arch"):
-        ARCH_CONFIGS["no-such-arch"]
-    dense = dataclasses.replace(ARCH_CONFIGS[ARCH], family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_model(reduce_config(dense), torch.Generator().manual_seed(0))
+        registry.get_config("no-such-arch")
 
 
 @pytest.mark.usefixtures("ref")
@@ -310,8 +318,8 @@ def test_serve_main_on_cpu_returns_the_generated_tokens(capsys):
     assert ((0 <= gen) & (gen < 128)).all()
     out = capsys.readouterr().out
     assert "tok/s" in out and "CPU host" in out
-    again = serve.main(["--batch", "3", "--prompt-len", "5", "--gen", "7",
-                        "--max-seq", "16", "--device", "cpu"])
+    again = serve.main(["--arch", ARCH, "--batch", "3", "--prompt-len", "5",
+                        "--gen", "7", "--max-seq", "16", "--device", "cpu"])
     np.testing.assert_array_equal(gen, again)          # seeded
 
 
@@ -324,6 +332,12 @@ def test_serve_main_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--quant", "w8"], ["--kv-int8"]])
-def test_serve_quant_flags_raise_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--device", "cpu", *flag])
+def test_serve_quant_flags_run(flag, capsys):
+    """``--quant w8`` serves int8 weights, ``--kv-int8`` alone (weights
+    w8, as in the reference) an int8 KV cache too."""
+    gen = serve.main(["--arch", ARCH, "--device", "cpu", "--gen", "3", *flag])
+    assert gen.shape == (4, 3)
+    out = capsys.readouterr().out
+    kv = flag == ["--kv-int8"]
+    assert f"[serve] weights quantised: mode=w8 int8-KV={kv}" in out
+    assert f"quant=w8, int8-KV={kv}" in out
