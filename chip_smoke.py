@@ -149,7 +149,34 @@ cache (qwen1.5-0.5B at its published width and depth), in phases:
      published widths, depth cut to 2 layers (gemma2: one local, one
      global), each: prefill against step-by-step decode of a 16-token
      prompt (dropless MoE capacity) in f32 and bf16, then a w8a8 + int8-KV
-     decode, finite, through K4.
+     decode, finite, through K4;
+ 11. LM training, after phase 5's timings once RecurrentGemma-2B's
+     weights are freed: (a) qwen1.5-0.5B at its published width and depth
+     through ``launch.train.main`` (B=8, S=512, bf16 over f32 master
+     weights, remat "full"): a step's wall waited for, back to back
+     and under the profiler, each beside the profiler's device-busy time
+     (idle shares), then 20
+     steps without and with ``remat="full"`` under deterministic
+     algorithms (a falling loss, equal losses bit for bit, a lower peak),
+     and 10 straight steps equal to 5 + a SIGTERM checkpoint + a resume,
+     bit for bit; (b) RecurrentGemma-2B at published widths cut to one
+     period (rec, rec, attn), trained at B=1, T=4096: K7 twice a rec
+     block a step (forward and the remat recompute) and its backward once,
+     the backward against the plain recurrence's autograd on layer 0's
+     scan inputs (1e-5 relative), timed alone (over three operand sets
+     in turn, so its bytes come from HBM) and as a whole Function
+     backward; (c) one step of each other family at published widths
+     (phase 10c's two layers, the MoE archs one), w8a8 fake-quant on
+     qwen2-vl, hard activations on gemma2, int8 compression with two
+     microbatches on rwkv6 at S=512 (four wkv chunks, after the chunked
+     wkv is held against the sequential recurrence's autograd across
+     four chunks): finite loss, gradient norm above 0; (d)
+     ``launch.train --arch lstm-pems``: the int path's test MSE within the
+     reference's bound, through K1; (e) the ``WaveBatcher`` on qwen1.5-0.5B
+     at full width in f32, every slot equal to its batch-of-one run, then
+     with w8a8 weights (K4 once per quantised linear), and
+     ``for_accelerator`` on the paper's session (K1), rows equal to
+     ``infer(path="int")``.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -202,6 +229,10 @@ def check(cond, msg):
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def quiet(*_):
+    pass
 
 
 def card_line():
@@ -577,7 +608,7 @@ def phase_ops(ops, qm, ha, fa, qc, fxp, QLSTMConfig, dev, mods):
     launches = read_counts(mods)
     want = {"int32": 1, "requant": 1, "hard_sigmoid_star": 3, "hard_tanh": 1,
             "flash_attention": 1, "multilayer": 0, "seq": 1, "slot": 0,
-            "rglru_seq": 0, "rglru_seq_lane": 0}
+            "rglru_seq": 0, "rglru_seq_lane": 0, "rglru_seq_bwd": 0}
     check(launches == want, f"the ops path launched {launches}")
 
     errs = {"quant_matmul_int32": max_err(acc, qm.quant_matmul_plain(x, w)),
@@ -744,7 +775,6 @@ def phase7_train(repro_torch, model, accel, mods, dev, card):
     data = pems_like_dataset(seq_len=6, n_days=28)
     params0 = repro_torch.build(model, accel, seed=0).params
     fresh = lambda: repro_torch.build(model, accel, params=params0)
-    quiet = lambda *_: None
     t0 = time.perf_counter()
     sess = fresh().train_qat(data, steps=200, batch=64, log_every=1, log=quiet)
     train_s = time.perf_counter() - t0
@@ -1811,7 +1841,533 @@ def phase10_families(T, ARCH_CONFIGS, QuantConfig, mods, dev, card):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 11: LM training, the paper's model through the training launcher,
+# and the wave batcher
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", QWEN, "--preset", "full", "--batch", "8", "--seq", "512",
+              "--device", "cuda"]
+# RecurrentGemma-2B cut to one period of its pattern, trained at T=4096 (the
+# prefill's length).  B is cut from the prefill's 2 to 1: at B=2 the f32
+# logits (2 x 4096 x 256,000) and their softcap and softmax chain peak at
+# 65.9 GiB, and the third step failed to find 7.8 GiB in the 16 GiB the
+# allocator had left fragmented.
+RG_TRAIN_B, RG_TRAIN_T = 1, 4096
+BWD_SETS = 3     # operand sets K7's backward is timed over
+# The other archs' training cut: phase 10c's two layers, one for the MoE archs,
+# whose two-layer AdamW state alone (params, gradients, two moments and the
+# step's new copies, ~7 x 12.5 GB for mixtral) exceeds the card.
+# rwkv6 trains on four of its 128-token wkv chunks, so the chunks chain.
+TRAIN_SEQ = {"rwkv6-7b": 512}
+TRAIN_CUT = {"gemma2-2b": 2, "mixtral-8x7b": 1, "phi3.5-moe": 1, "rwkv6-7b": 2,
+             "qwen2-vl-2b": 2, "musicgen-medium": 2}
+
+
+def step_profile(step_fn, state, batch_fn, steps, warm=2):
+    """``warm`` steps, then ``steps`` steps under each of three clocks:
+    each step waited for, without the profiler; back to back without the
+    profiler, one synchronize at the end (as ``Trainer`` runs between its
+    logs); each step waited for, under the profiler.  Every batch is on
+    the card before the first clock starts.  Returns ms per step under
+    each clock (``wait_ms``, ``b2b_ms``, ``prof_ms``), the device-busy ms
+    per step under the profiler (``busy_ms``) and its table (``avgs``)."""
+    first = int(state["step"])
+    batches = iter([batch_fn(first + i) for i in range(warm + 3 * steps + 1)])
+    holder = [state]
+
+    def one(wait=True):
+        holder[0], m = step_fn(holder[0], next(batches))
+        if wait:
+            float(m["loss"])                   # waits for the step
+
+    def clock(wait):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one(wait)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+    for _ in range(warm):
+        one()
+    out = dict(wait_ms=clock(True), b2b_ms=clock(False))
+    avgs, wall_ms = profile(one, steps)
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")  # noqa: E731
+    busy = sum(device_us(e) for e in avgs if is_cuda(e)) / steps / 1e3
+    return dict(out, prof_ms=wall_ms / steps, busy_ms=busy, avgs=avgs)
+
+
+def step_clocks(sp, card):
+    """One log line's worth of ``step_profile``'s clocks and idle shares."""
+    idle = lambda ms: 1 - sp["busy_ms"] / ms  # noqa: E731
+    return (f"{sp['busy_ms']:.6f} ms device busy (the profiler's kernels) against "
+            f"{sp['wait_ms']:.6f} ms wall waited for step by step (idle share "
+            f"{idle(sp['wait_ms']):.4f}), {sp['b2b_ms']:.6f} ms back to back "
+            f"(idle share {idle(sp['b2b_ms']):.4f}), {sp['prof_ms']:.6f} ms under "
+            f"the profiler (idle share {idle(sp['prof_ms']):.4f}), on {card}")
+
+
+def phase11_qwen(train, mods, dev, card):
+    """11a: qwen1.5-0.5B at full width trains 20 steps (no remat, then
+    remat="full": equal losses, lower peak), a profiled step, and a
+    SIGTERM restart bit for bit.  The comparisons run under
+    ``torch.use_deterministic_algorithms(True)`` (the embedding's and the
+    gather's backward accumulate with atomics otherwise)."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.training import step as TS
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.tree import tree_leaves, tree_leaves_with_path
+
+    cfg = ARCH_CONFIGS[QWEN]
+    # A step outside deterministic mode, as a user runs it: wall, busy, idle.
+    plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=10, total_steps=20))
+    params, _ = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    src = SyntheticLM(cfg.vocab_size, seed=0)
+    batch_fn = lambda i: {k: torch.as_tensor(v, device=dev)  # noqa: E731
+                          for k, v in src.batch(i, 8, 512).items()}
+    sp = step_profile(TS.make_train_step(cfg, plan),
+                      TS.init_train_state(params, plan), batch_fn, 3)
+    log(f"phase 11a: {QWEN} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, bf16 activations over f32 "
+        f"master weights, remat {cfg.remat}) train step B=8 S=512: "
+        f"{8 * 512 / sp['b2b_ms'] * 1e3:.3f} tokens/s back to back; "
+        + step_clocks(sp, card))
+    log(sp["avgs"].table(sort_by="self_device_time_total", row_limit=12))
+    del params, sp
+    torch.cuda.empty_cache()
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for remat in ("none", "full"):
+            reset_counts(mods)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            out = train.main(TRAIN_ARGV + ["--steps", "20", "--remat", remat],
+                             log=quiet)
+            wall_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = read_counts(mods)
+            hist = {h["step"]: h for h in out["history"]}
+            check(out["step"] == 20 and sorted(hist) == [1, 10, 20],
+                  f"remat {remat}: steps {out['step']}, logged {sorted(hist)}")
+            check(all(np.isfinite(h["loss"]) for h in hist.values()),
+                  f"remat {remat}: non-finite loss")
+            check(hist[20]["loss"] < hist[1]["loss"],
+                  f"remat {remat}: the loss did not fall: {hist[1]['loss']} -> "
+                  f"{hist[20]['loss']}")
+            check(not any(launches.values()), f"LM training launched {launches}")
+            runs[remat] = (hist, peak)
+            log(f"phase 11a: launch.train.main --arch {QWEN} --preset full "
+                f"--steps 20 --batch 8 --seq 512 --remat {remat} (deterministic "
+                f"algorithms): loss step 1 {hist[1]['loss']}, step 10 "
+                f"{hist[10]['loss']}, step 20 {hist[20]['loss']}; a step "
+                f"{hist[10]['dt'] * 1e3:.3f} / {hist[20]['dt'] * 1e3:.3f} ms (steps "
+                f"10 / 20, wall after synchronize); peak device memory "
+                f"{peak / 2**30:.3f} GiB; {wall_s:.1f} s with init on {card}")
+            del out
+            torch.cuda.empty_cache()
+        (h0, p0), (h1, p1) = runs["none"], runs["full"]
+        check(all(h0[s]["loss"] == h1[s]["loss"] for s in h0),
+              "remat full and none give different losses")
+        check(p1 < p0, f"remat full does not lower the peak: {p1} >= {p0}")
+        log(f"phase 11a: remat full equals none at steps 1/10/20 bit for bit; "
+            f"peak {p1 / 2**30:.3f} GiB against {p0 / 2**30:.3f} GiB")
+
+        root = Path(__file__).resolve().parent / "build" / "chip_smoke_lm_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+
+        def preempt_at_5(msg):
+            if msg.startswith("[step 5]"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        argv = TRAIN_ARGV + ["--steps", "10", "--log-every", "5"]
+        try:
+            t0 = time.perf_counter()
+            full = train.main(argv, log=quiet)["state"]
+            cut = train.main(argv + ["--ckpt-dir", str(root)], log=preempt_at_5)
+            check(cut["preempted"] and cut["step"] == 5,
+                  f"SIGTERM did not end the run at step 5: {cut['step']}")
+            del cut
+            resumed = train.main(argv + ["--ckpt-dir", str(root)], log=quiet)
+            check(resumed["step"] == 10, "the resumed run did not reach step 10")
+            check(all(t.device.type == dev.type for t in tree_leaves(resumed["state"])),
+                  "the resumed state left the card")
+            for (p, a), (_, b) in zip(tree_leaves_with_path(full),
+                                      tree_leaves_with_path(resumed["state"])):
+                check(torch.equal(a, b), f"restart differs at {'/'.join(p)}")
+            restart_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"phase 11a: 10 straight steps equal 5 steps + SIGTERM checkpoint + "
+            f"resume + 5 steps, bit for bit ({len(tree_leaves(full))} leaves: "
+            f"params, AdamW moments, step), in {restart_s:.1f} s with two "
+            f"checkpoints of the state written")
+        del full, resumed
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+
+
+def phase11_rgemma(rg, mods, dev, card):
+    """11b: RecurrentGemma-2B at published widths, cut to one period (rec,
+    rec, attn), trains at B=1, T=4096 through K7 forward and backward.
+    Returns (launches of the counted steps, K7 backward's record parts)."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.models import layers as L
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import count_params
+    from repro_torch.training import step as TS
+    from repro_torch.training.optimizer import OptConfig
+
+    full = ARCH_CONFIGS["recurrentgemma-2b"]
+    cfg = full.replace(n_layers=len(full.recurrent.block_pattern))
+    n_rec = sum(k == "rec" for k in cfg.layer_kinds())
+    params, _ = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+    step_fn = TS.make_train_step(cfg, plan)
+    src = SyntheticLM(cfg.vocab_size, seed=1)
+    batch_fn = lambda i: {k: torch.as_tensor(v, device=dev)  # noqa: E731
+                          for k, v in src.batch(i, RG_TRAIN_B, RG_TRAIN_T).items()}
+    state = TS.init_train_state(params, plan)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(mods)
+    losses = []
+    steps = 2
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, m = step_fn(state, batch_fn(i))
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and float(m["grad_norm"]) > 0,
+              f"RecurrentGemma-2B step {i}: loss {losses[-1]}, grad norm "
+              f"{float(m['grad_norm'])}")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(mods)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # remat "full" checkpoints the period: each rec block's scan runs in the
+    # forward and again in the backward's recompute, then its backward.
+    want = {**{k: 0 for k in launches}, "rglru_seq": 2 * n_rec * steps,
+            "rglru_seq_bwd": n_rec * steps}
+    check(launches == want, f"training launched {launches}, not {want}")
+    log(f"phase 11b: RecurrentGemma-2B at published widths, cut {full.n_layers} -> "
+        f"{cfg.n_layers} layers (one period {cfg.recurrent.block_pattern}; "
+        f"{count_params(params)} f32 params): {steps} train steps B={RG_TRAIN_B} "
+        f"T={RG_TRAIN_T}, losses {losses}, {wall_s:.3f} s; K7 launches {launches} "
+        f"({n_rec} rec blocks x (forward + remat recompute) and one backward "
+        f"launch each a step); peak device memory {peak / 2**30:.3f} GiB on {card}")
+    del m
+    sp = step_profile(step_fn, state, batch_fn, 2, warm=0)
+    log(f"phase 11b: a train step (remat {cfg.remat}): " + step_clocks(sp, card))
+    log(sp["avgs"].table(sort_by="self_device_time_total", row_limit=10))
+    del state, sp
+
+    # K7's backward against the plain recurrence's autograd, on layer 0's
+    # scan inputs.
+    tokens = batch_fn(0)["tokens"]
+    with torch.no_grad():
+        la, b = (x.contiguous() for x in layer0_scan_inputs(T, L, RG, params, cfg,
+                                                            tokens))
+    del params
+    torch.cuda.empty_cache()
+    dh = torch.randn(b.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    la_g, b_g = la.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    before = dict(rg.LAUNCHES)
+    got = torch.autograd.grad(rg.rglru_seq_grad(la_g, b_g), (la_g, b_g), dh)
+    torch.cuda.synchronize()
+    check(rg.LAUNCHES["rglru_seq_bwd"] == before["rglru_seq_bwd"] + 1,
+          "the backward did not launch K7 once")
+    la_p, b_p = la.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    want = torch.autograd.grad(rg.rglru_seq_plain(la_p, b_p), (la_p, b_p), dh)
+    errs = []
+    for what, g, w in zip(("dlog_a", "db"), got, want):
+        scale = float(w.abs().max())
+        errs.append(close_err(g, w, 1e-5 * scale, 1e-5, f"K7 backward {what}"))
+    log(f"phase 11b: K7's backward on layer 0's {tuple(b.shape)} scan inputs "
+        f"against the plain recurrence's autograd: max |err| dlog_a {errs[0]}, "
+        f"db {errs[1]} (1e-5 relative + 1e-5 of the largest value)")
+
+    # The backward's launch alone, on its flipped operands; the whole
+    # Function backward beside the plain autograd backward.
+    la_next = torch.cat([torch.zeros_like(la[:1]), la.flip(0)[:-1]])
+    dhf = dh.flip(0).contiguous()
+    check(rg.tile_route_fits(la_next, dhf), "K7's backward misses the tile route")
+    # Timed over BWD_SETS copies of its operands in turn: one launch moves
+    # 126 MB, so the others' traffic clears the 50 MB L2 between a set's
+    # launches and each launch reads its inputs from HBM.
+    sets = [(la_next.clone(), dhf.clone()) for _ in range(BWD_SETS)]
+
+    def kern():
+        for a, d in sets:
+            rg._launch(a, d, counter="rglru_seq_bwd")
+    h = rg.rglru_seq_grad(la_g, b_g)
+    fn_bwd_ms = cuda_ms(lambda: torch.autograd.grad(h, (la_g, b_g), dh,
+                                                    retain_graph=True), 20)
+    hp = rg.rglru_seq_plain(la_p, b_p)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(hp, (la_p, b_p), dh,
+                                                       retain_graph=True), 2)
+    log(f"phase 11b: K7 Function backward (flips, one launch, dlog_a pass) "
+        f"{fn_bwd_ms:.6f} ms; the plain recurrence's autograd backward "
+        f"{plain_bwd_ms:.6f} ms on {card}")
+    n = dhf.numel()
+    return launches, dict(
+        name="rglru_seq_bwd", replaces="src/repro/kernels/rglru_scan.py:48",
+        source="src/repro_torch/csrc/rglru_scan.cu", symbol=("rglru_tile_kernel",),
+        counter="rglru_seq_bwd", err=max(errs), plain_iters=3, kern=kern,
+        per_call=BWD_SETS,
+        plain=lambda: rg.rglru_seq_plain(la_next, dhf),
+        # read la and dh, write g; one exp, one multiply, one add per element
+        bound=bound(3 * 4 * n, 3 * n, FP32_OPS_PER_S),
+        extra=dict(function_backward_ms=fn_bwd_ms,
+                   plain_autograd_backward_ms=plain_bwd_ms))
+
+
+def wkv_chunked_check(dev):
+    """RWKV-6's chunked wkv across four chunks at rwkv6-7b's head widths
+    (64 x 64), decays summing past exp's f32 range within a chunk, a state
+    carried in: output, final state and every input's gradient against
+    the sequential recurrence's autograd, to 2e-4 of the largest value
+    (f32 sums over a chunk in another order)."""
+    from repro_torch.models import rwkv6 as RW
+    g = torch.Generator(device=dev).manual_seed(5)
+    shape = (1, 512, 64, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    w = 0.5 * torch.randn(shape, generator=g, device=dev)
+    u = torch.randn(shape[2:], generator=g, device=dev)
+    s0 = torch.randn((1, 64, 64, 64), generator=g, device=dev)
+    runs = []
+    for fn in (RW.wkv_chunked, RW.wkv_sequential):
+        ins = [a.clone().requires_grad_(True) for a in (r, k, v, w, u, s0)]
+        y, st = fn(*ins)
+        runs.append([y, st, *torch.autograd.grad(y.square().sum() + st.sum(), ins)])
+    errs = {}
+    for name, got, want in zip(("y", "state", "dr", "dk", "dv", "dw", "du", "ds0"),
+                               *runs):
+        scale = float(want.detach().abs().max())
+        errs[name] = close_err(got.detach(), want.detach(), 2e-4 * scale, 0,
+                               f"wkv_chunked {name}") / scale
+    log(f"phase 11c: wkv_chunked {shape} over 4 chunks against wkv_sequential's "
+        f"autograd, max |err| / max |value|: {errs} (tolerance 2e-4)")
+
+
+def phase11_families(mods, dev, card):
+    """11c: one ``make_train_step`` per other arch at published widths
+    (phase 10c's depth cut; the MoE archs at one layer): finite loss and a
+    gradient norm above 0; w8a8 fake-quant on qwen2-vl, hard activations on
+    gemma2, int8 compression with two microbatches on rwkv6, whose step
+    runs S=512 (four wkv chunks) after a check of the chunked wkv."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.training import step as TS
+    from repro_torch.training.optimizer import OptConfig
+
+    variants = {"gemma2-2b": (dict(hard_acts=True), {}),
+                "qwen2-vl-2b": (dict(quant=QuantConfig("w8a8")), {}),
+                "rwkv6-7b": ({}, dict(grad_compress="int8", microbatches=2))}
+    b = 2
+    for arch, layers in TRAIN_CUT.items():
+        t0 = time.perf_counter()
+        s = TRAIN_SEQ.get(arch, 128)
+        if arch == "rwkv6-7b":
+            wkv_chunked_check(dev)
+        cfg_kw, plan_kw = variants.get(arch, ({}, {}))
+        cfg = ARCH_CONFIGS[arch].replace(n_layers=layers, **cfg_kw)
+        params, _ = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+        plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10),
+                            **plan_kw)
+        state = TS.init_train_state(params, plan)
+        del params
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 SyntheticLM(cfg.vocab_size, seed=2).batch(0, b, s).items()}
+        if cfg.attn and cfg.attn.mrope_sections:
+            pos = torch.arange(s, device=dev).expand(b, s)
+            batch["position_ids"] = torch.stack([pos, pos // 2, pos % 3])
+        if not cfg.embed_inputs:
+            batch["inputs_embeds"] = torch.randn(
+                (b, s, cfg.d_model), generator=torch.Generator(device=dev).manual_seed(3),
+                device=dev).to(torch.bfloat16)
+            del batch["tokens"]
+        reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_fn = TS.make_train_step(cfg, plan)
+        state, m = step_fn(state, batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(np.isfinite(loss) and gn > 0, f"{arch}: loss {loss}, grad norm {gn}")
+        check(not any(read_counts(mods).values()),
+              f"{arch}: training launched {read_counts(mods)}")
+        check(("grad_err" in state) == (plan.grad_compress == "int8"),
+              f"{arch}: int8 error state")
+        log(f"phase 11c: {arch} at published widths, {layers} layer(s) "
+            f"{cfg_kw or ''}{plan_kw or ''}: one train step B={b} S={s}, loss "
+            f"{loss}, grad norm {gn}, aux {float(m['aux'])}; peak "
+            f"{peak / 2**30:.3f} GiB; {time.perf_counter() - t0:.1f} s")
+        del state, m, step_fn
+        torch.cuda.empty_cache()
+
+
+def phase11_lstm(train, mods, dev, card):
+    """11d: ``launch.train --arch lstm-pems`` on the card: the int path's
+    test MSE within the reference's bound (``tests/test_system.py``: below
+    twice the QAT MSE, or 0.05), through K1."""
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    out = train.main(["--arch", "lstm-pems", "--steps", "200", "--batch", "64",
+                      "--device", dev.type], log=quiet)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(mods)
+    mse = out["test_mse"]
+    check(mse["int8-kernel"] < max(2 * mse["qat"], 0.05),
+          f"int path MSE {mse['int8-kernel']} against QAT {mse['qat']}")
+    check(launches == {**{k: 0 for k in launches}, "multilayer": 1},
+          f"the int evaluation launched {launches}")
+    log(f"phase 11d: launch.train.main --arch lstm-pems --steps 200: test MSE "
+        f"{mse}; K1 launches {launches['multilayer']}; {wall_s:.1f} s on {card}")
+    return launches
+
+
+def phase11_batcher(session, layer_mods, mods, qm, dev, card):
+    """11e: the ``WaveBatcher`` on qwen1.5-0.5B at full width (f32, so that
+    the greedy tokens of a slot cannot flip with the batch's GEMM shape):
+    six mixed requests at batch 4, each equal to its batch-of-one run; the
+    same requests with w8a8 weights, K4 once per quantised linear a step
+    (w8a8 quantises each activation per tensor, over the whole wave, so a
+    slot's codes depend on its wave and are not held to its batch-of-one
+    run); and ``for_accelerator`` on the paper's session (K1), rows equal
+    to ``infer(path="int")``.  Returns the launches."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.batcher import WaveBatcher
+    from repro_torch.models import transformer as T
+
+    cfg = ARCH_CONFIGS[QWEN].replace(dtype="float32")
+    rng = np.random.default_rng(13)
+    reqs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in ((3, 6), (7, 4), (2, 8), (5, 5), (4, 3), (6, 7))]
+    totals = {}
+
+    def run(b, rs):
+        rids = [b.submit(p, m) for p, m in rs]
+        out = b.run()
+        return [out[r] for r in rids]
+
+    params, axes = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    for quant in (None, "w8a8"):
+        t0 = time.perf_counter()
+        c, p = cfg, params
+        if quant:
+            c = cfg.replace(quant=QuantConfig(quant))
+            p, _ = T.quantize_model_params(params, axes, c)
+        reset_counts(mods)
+        with QuantLinearCount(layer_mods) as n_lin:
+            got = run(WaveBatcher(p, c, batch_size=4, max_seq=32), reqs)
+            torch.cuda.synchronize()
+        launches = read_counts(mods)
+        check(launches["int32"] == n_lin.n and
+              sum(launches.values()) == launches["int32"] and
+              (n_lin.n > 0) == bool(quant),
+              f"batcher {quant or 'float'}: {n_lin.n} quantised linears, "
+              f"launches {launches}")
+        batched_s = time.perf_counter() - t0
+        check([len(g) for g in got] == [m for _, m in reqs] and
+              all(0 <= x < c.vocab_size for g in got for x in g),
+              f"batcher {quant or 'float'}: tokens {got}")
+        if not quant:
+            singles = [run(WaveBatcher(p, c, batch_size=1, max_seq=32), [r])[0]
+                       for r in reqs]
+            check(got == singles, f"batched slots differ from their "
+                  f"batch-of-one runs: {got} vs {singles}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"phase 11e: WaveBatcher {QWEN} full width f32 "
+            f"{quant or 'float'}, batch 4, 6 requests (2 waves): {batched_s:.2f} s"
+            f"{'' if quant else ', each slot equal to its batch-of-one run'}; "
+            f"quantised linears "
+            f"{n_lin.n} = K4 launches {launches['int32']} on {card}")
+        del p
+    del params
+    torch.cuda.empty_cache()
+
+    windows = np.random.default_rng(14).normal(0, 0.7, (37, 6, 1)).astype(np.float32)
+    reset_counts(mods)
+    b = WaveBatcher.for_accelerator(session, batch_size=16)
+    rids = [b.submit_window(w) for w in windows]
+    out = b.run()
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    want = session.infer(windows, path="int").cpu().numpy()
+    check(all(np.array_equal(out[r], want[i]) for i, r in enumerate(rids)),
+          "for_accelerator rows differ from infer(path='int')")
+    check(launches["multilayer"] >= 3 and
+          sum(launches.values()) == launches["multilayer"],
+          f"for_accelerator launched {launches}")
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    log(f"phase 11e: for_accelerator (batch 16) on 37 windows: rows equal "
+        f"infer(path='int'); launches {launches}")
+    return totals
+
+
+def kernel_record(sp, launches, card):
+    """One kernel's entry of the ``{"kernels": [...]}`` record from its spec
+    (``kern``, ``plain`` and optional ``library``/``earlier`` callables, its
+    ``bound``, the profiler ``symbol``s of its CUDA kernels): ``ms`` the
+    device time of the wrapper's work (graph replay), ``call_ms`` one eager
+    call as Python issues it, ``kernel_ms`` the CUDA kernel alone (the
+    profiler), ``plain_ms`` and ``library_ms``."""
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")  # noqa: E731
+    kern, (b_ms, b_by) = sp["kern"], sp["bound"]
+    per = sp.get("per_call", 1)                # launches in one kern() call
+    ms, call_ms = graph_ms(kern, 500) / per, cuda_ms(kern, 500) / per
+    plain_ms = cuda_ms(sp["plain"], sp.get("plain_iters", 20))
+    avgs, _ = profile(kern, 50)
+    part_us = {sym: sum(device_us(e) for e in avgs
+                        if is_cuda(e) and sym in e.key) / 50 / per
+               for sym in sp["symbol"]}
+    k_us = sum(part_us.values())
+    if len(part_us) > 1:
+        log(f"phase 5: {sp['name']}: kernel alone by kernel (ms): "
+            f"{ {sym: us / 1e3 for sym, us in part_us.items()} }")
+    lib_ms = None
+    if "library" in sp:
+        lib_ms = cuda_ms(sp["library"], 200)
+        lib_avgs, _ = profile(sp["library"], 5)
+        log(f"phase 5: {sp['name']}: the library call ran "
+            f"{sorted({e.key for e in lib_avgs if is_cuda(e)})}")
+    rec = {
+        "name": sp["name"], "route": "cuda", "source": sp["source"],
+        "replaces": sp["replaces"], "launches": launches,
+        "max_abs_err": sp["err"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "counter": sp["counter"], "call_ms": call_ms,
+        "kernel_ms": k_us / 1e3 if k_us else None, **sp.get("extra", {})}
+    log(f"phase 5: {sp['name']}: {ms:.6f} ms device (eager call {call_ms:.6f} ms, "
+        f"kernel alone {k_us / 1e3:.6f} ms, plain {plain_ms:.6f} ms, library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
+        f"{b_ms:.6f} ms by {b_by}) on {card}")
+    if "earlier" in sp:
+        fn, sym = sp["earlier"]
+        e_avgs, _ = profile(fn, 50)
+        e_ms = sum(device_us(e) for e in e_avgs if is_cuda(e) and sym in e.key) / 50e3
+        rec.update(earlier_kernel_ms=e_ms, earlier_ms=graph_ms(fn, 500))
+        log(f"phase 5: {sp['name']}: earlier design ({sym}) on the same inputs: "
+            f"kernel alone {e_ms:.6f} ms, {rec['earlier_ms']:.6f} ms "
+            f"device; now {k_us / 1e3 / e_ms:.4f} of it on {card}")
+    return rec
+
+
 def main() -> int:
+    # phase 11a's bit-exact restart runs under deterministic algorithms,
+    # which need cuBLAS's workspace fixed before CUDA initialises
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2166,48 +2722,8 @@ def main() -> int:
              bound=bound(3 * 4 * k7_in[1].numel(), 3 * k7_in[1].numel(),
                          FP32_OPS_PER_S)),
     ]
-    is_cuda = lambda e: str(e.device_type).endswith("CUDA")
-    kernels = []
-    for sp in specs:
-        # ms: device time of the wrapper's work (graph replay); call_ms:
-        # one eager call as Python issues it; kernel_ms: the CUDA kernel
-        # alone, from the profiler.
-        kern, (b_ms, b_by) = sp["kern"], sp["bound"]
-        ms, call_ms = graph_ms(kern, 500), cuda_ms(kern, 500)
-        plain_ms = cuda_ms(sp["plain"], sp.get("plain_iters", 20))
-        avgs, _ = profile(kern, 50)
-        part_us = {sym: sum(device_us(e) for e in avgs
-                            if is_cuda(e) and sym in e.key) / 50
-                   for sym in sp["symbol"]}
-        k_us = sum(part_us.values())
-        if len(part_us) > 1:
-            log(f"phase 5: {sp['name']}: kernel alone by kernel (ms): "
-                f"{ {sym: us / 1e3 for sym, us in part_us.items()} }")
-        lib_ms = None
-        if "library" in sp:
-            lib_ms = cuda_ms(sp["library"], 200)
-            lib_avgs, _ = profile(sp["library"], 5)
-            log(f"phase 5: {sp['name']}: the library call ran "
-                f"{sorted({e.key for e in lib_avgs if is_cuda(e)})}")
-        kernels.append({
-            "name": sp["name"], "route": "cuda", "source": sp["source"],
-            "replaces": sp["replaces"], "launches": launches[sp["counter"]],
-            "max_abs_err": sp["err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "counter": sp["counter"], "call_ms": call_ms,
-            "kernel_ms": k_us / 1e3 if k_us else None})
-        log(f"phase 5: {sp['name']}: {ms:.6f} ms device (eager call {call_ms:.6f} ms, "
-            f"kernel alone {k_us / 1e3:.6f} ms, plain {plain_ms:.6f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
-            f"{b_ms:.6f} ms by {b_by}) on {card}")
-        if "earlier" in sp:
-            fn, sym = sp["earlier"]
-            e_avgs, _ = profile(fn, 50)
-            e_ms = sum(device_us(e) for e in e_avgs if is_cuda(e) and sym in e.key) / 50e3
-            kernels[-1].update(earlier_kernel_ms=e_ms, earlier_ms=graph_ms(fn, 500))
-            log(f"phase 5: {sp['name']}: earlier design ({sym}) on the same inputs: "
-                f"kernel alone {e_ms:.6f} ms, {kernels[-1]['earlier_ms']:.6f} ms "
-                f"device; now {k_us / 1e3 / e_ms:.4f} of it on {card}")
+    kernels = [kernel_record(sp, launches[sp["counter"]], card) for sp in specs]
+    is_cuda = lambda e: str(e.device_type).endswith("CUDA")  # noqa: E731
     # K3's latency floor: one round trip (its launch at T = 0: the prologue's
     # loads and the scatter, nothing else) plus T x L steps at its marginal
     # step time (T = 6 against T = 48); then the probes of the round-trip
@@ -2332,6 +2848,33 @@ def main() -> int:
             f"{step_ms:.6f} ms per step, {4e3 / step_ms:.3f} tokens/s; one step "
             f"{wall_ms / 3:.6f} ms wall under the profiler, {busy_ms:.6f} ms "
             f"device busy, idle share {1 - busy_ms / (wall_ms / 3):.4f} on {card}")
+
+    # -- phase 11: LM training, the training launcher, the wave batcher -------
+    from repro_torch.launch import train as lm_train
+    del lm_params, cache, k7_in, lm_tokens, logits, tok
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm11_launches = {}
+    for name, part in (
+            ("11a", lambda: phase11_qwen(lm_train, mods, dev, card)),
+            ("11b", lambda: phase11_rgemma(rg, mods, dev, card)),
+            ("11c", lambda: phase11_families(mods, dev, card)),
+            ("11d", lambda: phase11_lstm(lm_train, mods, dev, card)),
+            ("11e", lambda: phase11_batcher(session, layer_mods, mods, qm, dev,
+                                            card))):
+        t1 = time.perf_counter()
+        got = part()
+        if name == "11b":
+            got, bwd_spec = got
+        for k, v in (got or {}).items():
+            lm11_launches[k] = lm11_launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+        log(f"phase {name}: done in {time.perf_counter() - t1:.1f} s")
+    log(f"phase 11: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{lm11_launches}")
+    for k in kernels:
+        k["launches"] += lm11_launches.get(k["counter"], 0)
+    kernels.append(kernel_record(bwd_spec, lm11_launches["rglru_seq_bwd"], card))
 
     log(card)
     log(json.dumps({"kernels": kernels}))

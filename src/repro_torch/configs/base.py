@@ -85,7 +85,7 @@ class ModelConfig:
     quant: QuantConfig = NO_QUANT
     hard_acts: bool = False      # C2: swap soft nonlinearities for hard ones
     dtype: str = "bfloat16"      # activations; master params are float32
-    remat: str = "full"          # accepted for the reference's configs; no effect here
+    remat: str = "full"          # full: training checkpoints each layer (period); none
     sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
     notes: str = ""
 

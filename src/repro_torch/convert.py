@@ -9,7 +9,8 @@ session.params)``) and hand them here.  Then
 and ``repro.build(model, accel, params=...)`` compute the same thing from
 the same numbers.  For the LM side, :func:`lm_params_from_reference`
 does the same for the tree of ``repro.models.transformer.init_model``,
-and :func:`train_state_from_reference` for a whole QAT train state.
+and :func:`train_state_from_reference` /
+:func:`lm_train_state_from_reference` for a whole QAT or LM train state.
 This module imports neither JAX nor the reference: it
 only walks dicts and lists of array-likes.
 """
@@ -72,3 +73,9 @@ def train_state_from_reference(tree: Any,
     ``device`` (default: the CPU) — a reference run continued in the port
     starts from these."""
     return _convert(tree, None, device)
+
+
+# The LM's train state (``training.step.init_train_state``: params, AdamW
+# moments and count, step and, under int8 gradient compression,
+# ``grad_err``) converts leaf for leaf the same way.
+lm_train_state_from_reference = train_state_from_reference

@@ -15,9 +15,12 @@ So a bf16 "power of two" is the reference's bf16 value, not an exact one
 (exp2(-4) is 0.0629883 in bf16).  ``qmatmul``'s int8 x int8 -> int32 product
 runs through the port's integer GEMM (``kernels/quant_matmul.py``: the
 CUDA kernel on the card, its plain version on the CPU), which equals the
-reference's ``dot_general`` bit for bit.  Fake quantisation is here in its
-forward form only; its straight-through gradient and ``fq_matmul`` belong
-to LM training.
+reference's ``dot_general`` bit for bit.  Fake quantisation
+(``fake_quant_tensor``, ``fq_matmul``) carries the reference's
+straight-through gradient for LM training: identity inside the clip
+range, zero outside it and one half exactly on a bound, as ``jnp.clip``
+(a ``minimum`` of a ``maximum``, each splitting a tie) gives; ``torch.clamp``
+would give one there.
 """
 
 from __future__ import annotations
@@ -130,12 +133,24 @@ def quantize_weight(w: Tensor, cfg: QuantConfig, out_axis: int = -1) -> QTensor:
 
 def fake_quant_tensor(x: Tensor, axis: Optional[Sequence[int]] = None,
                       p2: bool = True) -> Tensor:
-    """dequant(quant(x)), the forward value of the reference's
-    straight-through fake quantisation."""
-    scale = compute_scale(x, axis=axis, p2=p2)
+    """STE fake quantisation: forward dequant(quant(x)), backward the
+    identity with saturation clipping (the scale carries no gradient)."""
+    scale = compute_scale(x, axis=axis, p2=p2).detach()
     q = torch.clamp(torch.floor(x / scale + 0.5), -128, 127) * scale
     xc = torch.minimum(torch.maximum(x, -128.0 * scale), 127.0 * scale)
-    return xc + (q - xc)
+    return xc + (q - xc).detach()
+
+
+def fq_matmul(x: Tensor, w: Tensor, cfg: QuantConfig) -> Tensor:
+    """QAT-time matmul: fake-quantise the weights (per output channel, or
+    per tensor) and, for w8a8, the activations per tensor, then multiply
+    in float.  Differentiable through the straight-through estimator."""
+    if not cfg.enabled:
+        return x @ w
+    wf = (fake_quant_tensor(w, axis=tuple(range(w.ndim - 1)), p2=cfg.p2_scale)
+          if cfg.per_channel else fake_quant_tensor(w, p2=cfg.p2_scale))
+    xf = fake_quant_tensor(x, p2=cfg.p2_scale) if cfg.act_quant else x
+    return xf @ wf.to(x.dtype)
 
 
 def int8_matmul(xq: Tensor, wq: Tensor) -> Tensor:

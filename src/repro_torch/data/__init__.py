@@ -1,6 +1,7 @@
-"""Training data for the port: the synthetic PeMS-like traffic series.
-
-Counterpart of ``repro/data`` for the QLSTM's training path; the
-LM-side sources (``lm_data``, ``pipeline``) are not ported yet."""
+"""Training data for the port — counterpart of ``repro/data``: the
+synthetic PeMS-like traffic series (QLSTM), the synthetic LM token stream
+and the prefetching, step-keyed pipeline."""
 
 from repro_torch.data.timeseries import pems_like_dataset  # noqa: F401
+from repro_torch.data.lm_data import SyntheticLM  # noqa: F401
+from repro_torch.data.pipeline import Pipeline  # noqa: F401

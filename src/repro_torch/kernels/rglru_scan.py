@@ -21,6 +21,20 @@ elsewhere.  Both give the same bits.
 
 :data:`LAUNCHES` counts kernel launches by route: ``"rglru_seq"`` (tile)
 and ``"rglru_seq_lane"`` (lane).
+
+:class:`RglruSeq` (:func:`rglru_seq_grad`) gives the recurrence a
+gradient for training, on both devices.  Its forward is
+:func:`rglru_seq`; it saves log_a and h.  Its backward is the same
+linear recurrence run backwards in time,
+
+  g_{T-1} = dh_{T-1},   g_t = dh_t + exp(log_a_{t+1}) * g_{t+1},
+  db_t = g_t,           dlog_a_t = g_t * exp(log_a_t) * h_{t-1}  (h_{-1} = 0),
+
+so on a CUDA tensor it is one more launch of the same kernel on the
+time-flipped operands (log_a shifted by one step, dh in f32), counted
+apart as ``LAUNCHES["rglru_seq_bwd"]``, and one elementwise torch pass
+for dlog_a; on the CPU the same steps run through the plain version.
+The reference gets this gradient from ``jax.lax.associative_scan``.
 """
 
 from __future__ import annotations
@@ -36,7 +50,7 @@ from repro_torch.kernels import ref
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"rglru_seq": 0, "rglru_seq_lane": 0}
+LAUNCHES = {"rglru_seq": 0, "rglru_seq_lane": 0, "rglru_seq_bwd": 0}
 
 _ROUTES = {"tile": (0, "rglru_seq"), "lane": (1, "rglru_seq_lane")}
 
@@ -110,11 +124,13 @@ def rglru_seq(log_a: Tensor, b: Tensor, *, batch_block: int = 128) -> Tensor:
     return _launch(log_a, b)
 
 
-def _launch(log_a: Tensor, b: Tensor, route: Optional[str] = None) -> Tensor:
+def _launch(log_a: Tensor, b: Tensor, route: Optional[str] = None,
+            counter: Optional[str] = None) -> Tensor:
     """Launch the kernel on the current stream for validated operands on
     one device; returns h in b's dtype and memory layout.  ``route``
     ("tile" or "lane") overrides the choice by :func:`tile_route_fits`;
-    the tile route raises on operands it cannot take."""
+    the tile route raises on operands it cannot take.  ``counter`` names
+    the :data:`LAUNCHES` entry to count in place of the route's."""
     if log_a.stride(2) != 1:
         log_a = log_a.contiguous()
     if b.stride(2) != 1:
@@ -124,7 +140,7 @@ def _launch(log_a: Tensor, b: Tensor, route: Optional[str] = None) -> Tensor:
         return out
     if route is None:
         route = "tile" if tile_route_fits(log_a, b, out) else "lane"
-    code, counter = _ROUTES[route]
+    code, route_counter = _ROUTES[route]
     t, bsz, w = b.shape
     lib = load_library()
     args = RglruArgs(log_a=log_a.data_ptr(), b=b.data_ptr(),
@@ -139,5 +155,40 @@ def _launch(log_a: Tensor, b: Tensor, route: Optional[str] = None) -> Tensor:
     if rc != 0:
         raise RuntimeError(f"rglru_seq kernel launch failed ({route} route): "
                            f"{lib.rglru_error_string(rc).decode()}")
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter or route_counter] += 1
     return out
+
+
+class RglruSeq(torch.autograd.Function):
+    """:func:`rglru_seq` with its gradient (the module docstring gives the
+    backward).  The forward saves log_a and h, nothing else, so a
+    recomputation under activation checkpointing launches it again."""
+
+    @staticmethod
+    def forward(ctx, log_a: Tensor, b: Tensor) -> Tensor:
+        h = rglru_seq(log_a, b)
+        ctx.save_for_backward(log_a, h)
+        ctx.b_dtype = b.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh: Tensor):
+        log_a, h = ctx.saved_tensors
+        # g runs backwards in time: flip, and shift log_a by one step (step
+        # 0 of the flipped operand multiplies the zero start state).
+        la_next = torch.cat([torch.zeros_like(log_a[:1]),
+                             log_a.flip(0)[:-1]]).float()
+        dh = dh.float().flip(0)
+        # the forward's operands passed rglru_seq's checks
+        g = (rglru_seq_plain(la_next, dh) if dh.device.type == "cpu"
+             else _launch(la_next, dh, counter="rglru_seq_bwd")).flip(0)
+        dla = g * torch.exp(log_a.float())
+        dla[0] = 0.0
+        dla[1:] *= h[:-1].float()
+        return dla.to(log_a.dtype), g.to(ctx.b_dtype)
+
+
+def rglru_seq_grad(log_a: Tensor, b: Tensor) -> Tensor:
+    """:func:`rglru_seq` under autograd: log_a, b (T, B, W) -> h (T, B,
+    W) in b's dtype, differentiable in both operands."""
+    return RglruSeq.apply(log_a, b)

@@ -37,7 +37,7 @@ def _device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to serve on the CPU")
+                           "to run on the CPU")
     return dev
 
 

@@ -15,8 +15,9 @@ of ``transformer.quantize_model_params``: w8 dequantises the weight into
 the matmul; w8a8 quantises the activation per tensor and runs the int8 x
 int8 -> int32 product through the port's integer GEMM
 (``core.quant.int8_matmul``: the CUDA kernel K4 on the card, never a
-plain product there).  Fake-quant (QAT) matmuls belong to LM training
-and raise here.
+plain product there).  Float weights in ``"train"`` mode with
+quantisation enabled take the fake-quant product ``core.quant.fq_matmul``
+(the straight-through estimator), as the reference's QAT does.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hard_act import HARD_VARIANT, get_float_act
-from repro_torch.core.quant import QuantConfig, _p2_round_scale, int8_matmul
+from repro_torch.core.quant import (QuantConfig, _p2_round_scale, fq_matmul,
+                                   int8_matmul)
 from repro_torch.models.modules import Boxed, param
 
 Tensor = torch.Tensor
@@ -68,12 +70,9 @@ def linear(x: Tensor, w, quant: QuantConfig, mode: str = "train") -> Tensor:
         else:  # w8: dequantise weights into the matmul
             y = x @ (w2.to(x.dtype) * ws.reshape(1, -1).to(x.dtype))
         return y.reshape(x.shape[:-1] + shp[1:])
-    if mode == "train" and quant.enabled:
-        raise NotImplementedError(
-            "fake-quant (QAT) matmuls belong to LM training, which is not "
-            "ported yet (ROADMAP.md)")
     shp = w.shape
-    y = x @ w.reshape(shp[0], -1).to(x.dtype)
+    w2 = w.reshape(shp[0], -1).to(x.dtype)
+    y = fq_matmul(x, w2, quant) if mode == "train" and quant.enabled else x @ w2
     return y.reshape(x.shape[:-1] + shp[1:])
 
 

@@ -81,3 +81,9 @@ def param(gen: Optional[torch.Generator], shape, axes,
 
 def count_params(params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
+
+
+def cast_tree(params, dtype: torch.dtype):
+    """Floating leaves cast to ``dtype`` (differentiably: the gradient
+    flows back to the source leaf in its own dtype); others as they are."""
+    return _map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)

@@ -9,7 +9,9 @@ expert index first, as ``jax.lax.top_k`` does.
 
 The router softmax stays in fp32 and is never quantised or hardened.
 Experts stored as ``{"q", "s"}`` int8 serve weights are dequantised into
-the expert products (``_deq``), as in the reference.
+the expert products (``_deq``), as in the reference; in ``"train"`` mode
+with quantisation on, float experts are fake-quantised (``_fq``) and
+carry the straight-through gradient.
 """
 
 from __future__ import annotations
@@ -112,8 +114,8 @@ def moe_apply(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
 
 
 def _fq(w, cfg: ModelConfig):
-    """Forward value of the reference's per-out-channel fake-quantised
-    expert weight."""
+    """The reference's per-out-channel fake-quantised expert weight, with
+    its straight-through gradient."""
     return fake_quant_tensor(w, axis=tuple(range(w.ndim - 1)),
                              p2=cfg.quant.p2_scale)
 

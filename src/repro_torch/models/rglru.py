@@ -10,11 +10,13 @@ RG-LRU:
   h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 With ``cfg.hard_acts`` the gates are the paper's HardSigmoid*.  For
-prefill the gates and inputs are computed for the whole sequence in torch
-and the serial recurrence runs on the hand-written kernel
-(``kernels/rglru_scan.py``, K7) for CUDA tensors, on its plain version for
-CPU tensors; the reference uses an associative scan there, so the two
-agree to fp32 rounding, not bit for bit.  Decode keeps the O(1) state and
+train and prefill the gates and inputs are computed for the whole
+sequence in torch and the serial recurrence runs on the hand-written
+kernel (``kernels/rglru_scan.py``, K7) for CUDA tensors, on its plain
+version for CPU tensors; the reference uses an associative scan there, so
+the two agree to fp32 rounding, not bit for bit.  In ``"train"`` mode the
+recurrence goes through ``rglru_seq_grad``, whose backward is one more K7
+launch; prefill calls the kernel plainly.  Decode keeps the O(1) state and
 is plain torch, as in the reference.
 
 The dtypes follow the reference: the conv multiplies the bf16 ``W_x x``
@@ -74,13 +76,14 @@ def _decay(p, gx: Tensor, cfg: ModelConfig):
     return log_a, mult, i
 
 
-def rglru_scan(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+def rglru_scan(p, x: Tensor, cfg: ModelConfig, mode: str = "train") -> Tensor:
     """The linear recurrence over the full sequence.  x: (B, T, W) ->
-    h: (B, T, W) in x's dtype."""
+    h: (B, T, W) in x's dtype; differentiable in ``"train"`` mode."""
     log_a, mult, i = _decay(p, x, cfg)
     b = mult * (i * x)
+    scan = K.rglru_seq_grad if mode == "train" else K.rglru_seq
     # (T, B, W) views in, (B, T, W) out: the kernel takes strides.
-    h = K.rglru_seq(log_a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
+    h = scan(log_a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
     return h.to(x.dtype)
 
 
@@ -116,5 +119,5 @@ def rec_block_apply(p, x: Tensor, cfg: ModelConfig, mode: str = "train",
         y = linear(gate * h[:, None, :], p["w_out"], cfg.quant, mode)
         return y, {"h": h, "conv": window[:, 1:, :]}
     cx = _causal_conv(p, gx, cfg)
-    h = rglru_scan(p, cx, cfg)
+    h = rglru_scan(p, cx, cfg, mode)
     return linear(gate * h, p["w_out"], cfg.quant, mode)

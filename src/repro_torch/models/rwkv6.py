@@ -9,7 +9,19 @@ Two sequence-mixing formulations, as in the reference:
   * ``wkv_chunked``    — the block-parallel form: within a chunk of C
     tokens the outputs come from (C x C) matmuls with pairwise decay
     factors exp(L_{t-1} - L_s) (all <= 1), and chunks are chained by a
-    loop.  Used for prefill.
+    loop.  Used for prefill and training.
+
+The reference folds the pairwise factor into r_t exp(L_{t-1}) and
+k_s exp(-L_s); its clamp of exp(-L_s) (``maximum(-L_s, -60)``) never
+acts, since -L_s >= 0, so once a channel's decay sums past ~88 within a
+chunk exp(-L_s) overflows and 0 x inf makes the output NaN (a 128-token
+training chunk at published widths does).  The port splits each chunk
+into sub-chunks of ``SUB`` tokens.  Between sub-chunks it keeps the
+factorised matmul, rebased on the later sub-chunk's start:
+r_t exp(L_{t-1} - L_i) times k_s exp(L_i - L_s), both <= 1.  Within a
+sub-chunk it forms each exp(L_{t-1} - L_s) <= 1 itself.  So no factor
+exceeds 1: the same values to fp32 rounding where the reference's are
+finite, and finite where they are not.
 
 The token-shift gates are sigmoids, so hard-activation capable (C2).
 Mixed-precision products follow the reference's promotion (a bf16
@@ -104,6 +116,9 @@ def wkv_sequential(r, k, v, w, u, state: Optional[Tensor] = None):
     return torch.stack(ys, 1), state
 
 
+SUB = 16   # sub-chunk length of wkv_chunked's intra-chunk scores
+
+
 def wkv_chunked(r, k, v, w, u, state: Optional[Tensor] = None,
                 chunk: int = 128):
     """Block-parallel WKV.  Same signature/semantics as wkv_sequential.
@@ -113,9 +128,15 @@ def wkv_chunked(r, k, v, w, u, state: Optional[Tensor] = None,
       y_t = r_t . (S_chunk_in * exp(L_{t-1}))            [inter-chunk]
           + sum_{s<t} (r_t exp(L_{t-1}-L_s) . k_s) v_s   [intra, strictly lower]
           + (r_t . u k_t) v_t                            [current-token bonus]
+    The chunk is rounded up to whole sub-chunks of ``SUB`` tokens.  The
+    intra-chunk terms of all chunks are formed at once (temporaries of
+    ~24x the inputs' size); only the state is carried by a loop.
     """
     b, t, h, n = r.shape
     c = min(chunk, t)
+    cs = min(SUB, c)
+    c = -(-c // cs) * cs
+    ns = c // cs
     pad = (-t) % c
     if pad:
         z = lambda a: F.pad(a, (0, 0, 0, 0, 0, pad))  # noqa: E731
@@ -127,32 +148,42 @@ def wkv_chunked(r, k, v, w, u, state: Optional[Tensor] = None,
     rc, kc, vc = (a.float().reshape(b, nc, c, h, n) for a in (r, k, v))
     logd = -torch.exp(w.float()).reshape(b, nc, c, h, n)   # log d_t (<= 0)
     L = torch.cumsum(logd, dim=2)                          # L_t within chunk
+    Lprev = L - logd                                       # L_{t-1}
     if state is None:
         state = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
-                     diagonal=-1)                          # strictly lower
-    ys = []
-    for j in range(nc):
-        rb, kb, vb, Lb, ldb = rc[:, j], kc[:, j], vc[:, j], L[:, j], logd[:, j]
-        Lprev = Lb - ldb                                   # L_{t-1}
-        r_in = rb * torch.exp(Lprev)                       # decay from chunk start
-        y_inter = torch.einsum("bchn,bhnm->bchm", r_in, state)
-        # exp(-L_s) can overflow for strongly decayed channels; clamped,
-        # since those channels contribute ~0 through exp(L_{t-1}).
-        k_out = kb * torch.exp(torch.clamp_min(-Lb, -60.0))
-        scores = torch.einsum("bchn,bshn->bhcs", r_in, k_out)
-        scores = torch.where(tri[None, None], scores, 0.0)
-        y_intra = torch.einsum("bhcs,bshn->bchn", scores, vb)
-        bonus = torch.einsum("bchn,bchn->bch", rb, u[None, None] * kb)
-        y_bonus = bonus[..., None] * vb
-        # S' = diag(exp(L_C)) S + sum_s exp(L_C - L_s) k_s v_s
-        LC = Lb[:, -1:]                                    # (B, 1, H, N)
-        k_fold = kb * torch.exp(LC - Lb)
-        state = torch.exp(LC[:, 0])[..., None] * state + \
-            torch.einsum("bshn,bshm->bhnm", k_fold, vb)
-        ys.append(y_inter + y_intra + y_bonus)
-    y = torch.stack(ys, 1).reshape(b, nc * c, h, n)[:, :t]
-    return y, state
+    lower = lambda m: torch.tril(torch.ones((m, m), dtype=torch.bool,  # noqa: E731
+                                            device=r.device), diagonal=-1)
+    tri, before = lower(cs), lower(ns)      # s < t; sub-chunk j < i
+    # Intra-chunk terms of every chunk at once (z: chunk, i/j: sub-chunk).
+    rs, ks, Ls, Lps = (a.reshape(b, nc, ns, cs, h, n) for a in (rc, kc, L, Lprev))
+    L0 = Lps[:, :, :, :1]                                  # L before sub-chunk i
+    # s in an earlier sub-chunk j < i: r_t exp(L_{t-1} - L0_i) times
+    # k_s exp(L0_i - L_s), both <= 1, contracted over n by a matmul
+    q = rs * torch.exp(Lps - L0)
+    gap = L0[:, :, :, None] - Ls[:, :, None]               # (B, Z, ns_i, ns_j, cs, H, N)
+    kk = ks[:, :, None] * torch.exp(
+        torch.where(before[:, :, None, None, None], gap, -torch.inf))
+    scores = torch.einsum("bzithn,bzijshn->bzhitjs", q, kk)
+    # s < t in the same sub-chunk: exp(L_{t-1} - L_s) <= 1 pairwise
+    gap = Lps[:, :, :, :, None] - Ls[:, :, :, None]        # (B, Z, ns, cs, cs, H, N)
+    decay = torch.exp(torch.where(tri[:, :, None, None], gap, -torch.inf))
+    diag = torch.einsum("bzithn,bzitshn,bzishn->bzhits", rs, decay, ks)
+    eye = torch.eye(ns, device=r.device)
+    scores = (scores + torch.einsum("bzhits,ij->bzhitjs", diag, eye)
+              ).reshape(b, nc, h, c, c)
+    y = torch.einsum("bzhcs,bzshn->bzchn", scores, vc)
+    y = y + torch.einsum("bzchn,bzchn->bzch", rc, u * kc)[..., None] * vc
+    # Chunk to chunk: S' = diag(exp(L_C)) S + sum_s exp(L_C - L_s) k_s v_s,
+    # and y_t += r_t exp(L_{t-1}) . S_in.
+    LC = L[:, :, -1]                                       # (B, Z, H, N)
+    kv = torch.einsum("bzshn,bzshm->bzhnm", kc * torch.exp(LC[:, :, None] - L), vc)
+    states = []
+    for z in range(nc):
+        states.append(state)
+        state = torch.exp(LC[:, z])[..., None] * state + kv[:, z]
+    y = y + torch.einsum("bzchn,bzhnm->bzchm", rc * torch.exp(Lprev),
+                         torch.stack(states, 1))
+    return y.reshape(b, nc * c, h, n)[:, :t], state
 
 
 # ---------------------------------------------------------------------------

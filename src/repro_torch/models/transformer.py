@@ -12,11 +12,16 @@ Composition rules (from ModelConfig), as in the reference:
 
 The params keep the reference's stacked layout, so carrying weights
 across is a plain map of leaves; a Python loop over layers takes the
-place of the reference's ``scan``.
+place of the reference's ``scan``.  With ``cfg.remat == "full"`` a
+training forward recomputes each layer (each period for the hybrid) in
+the backward pass, through ``torch.utils.checkpoint``, where the
+reference wraps its scan body in ``jax.checkpoint``: the results are the
+same, only the activation memory differs.
 
 Entry points:
   init_model      -> (params, axes)
   num_params / num_active_params -> analytic counts (nothing allocated)
+  forward_train   -> next-token cross-entropy (+ MoE aux) over a batch
   forward_prefill -> last-token logits of a full sequence
   init_cache      -> decode cache (KV bf16 or int8 + scales, rec / rwkv state)
   forward_decode  -> one-token serve step against the cache
@@ -28,6 +33,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import quantize_tensor
@@ -227,25 +233,47 @@ def _positions_for(batch, b: int, s: int, device=None) -> Tensor:
 def _run_blocks(params, h: Tensor, cfg: ModelConfig, positions: Tensor,
                 mode: str):
     """The layer stack(s) over a full sequence (train/prefill); returns
-    (h, summed MoE aux loss)."""
+    (h, summed MoE aux loss).  A training forward under autograd with
+    ``cfg.remat == "full"`` checkpoints each unit the reference's
+    ``jax.checkpoint`` wraps: a layer, or a period of the hybrid's
+    pattern."""
     seq = h.shape[1]
+    remat = mode == "train" and cfg.remat == "full" and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        return (checkpoint(fn, *args, use_reentrant=False) if remat
+                else fn(*args))
+
+    def block(p, kind, window):
+        def fn(x):
+            x, aux, _ = _block_apply(p, x, kind, cfg, positions=positions,
+                                     window=window, mode=mode)
+            return x, aux
+        return fn
+
     aux_total = 0.0
     if cfg.family == "hybrid":
         pat = cfg.recurrent.block_pattern
         full = cfg.n_layers // len(pat)
         attn_win = min(cfg.layer_windows(seq), default=seq)
         attn_win = None if attn_win >= seq else int(attn_win)
+
+        def period_fn(period):
+            def fn(x):
+                aux_sum = 0.0
+                for j, kind in enumerate(pat):
+                    x, aux = block(tree_index(params["groups"][j], period),
+                                   kind, attn_win if kind == "attn" else None)(x)
+                    aux_sum = aux_sum + aux
+                return x, aux_sum
+            return fn
+
         for period in range(full):
-            for j, kind in enumerate(pat):
-                h, aux, _ = _block_apply(
-                    tree_index(params["groups"][j], period), h, kind, cfg,
-                    positions=positions,
-                    window=attn_win if kind == "attn" else None, mode=mode)
-                aux_total = aux_total + aux
+            h, aux = run(period_fn(period), h)
+            aux_total = aux_total + aux
         for p in params["tail"]:
             for layer in range(tree_leaves(p)[0].shape[0]):
-                h, aux, _ = _block_apply(tree_index(p, layer), h, pat[0], cfg,
-                                         positions=positions, mode=mode)
+                h, aux = run(block(tree_index(p, layer), pat[0], None), h)
                 aux_total = aux_total + aux
         return h, aux_total
     kind = cfg.layer_kinds()[0]
@@ -253,16 +281,39 @@ def _run_blocks(params, h: Tensor, cfg: ModelConfig, positions: Tensor,
     if kind == "attn":  # SWA / gemma2's local/global alternation
         windows = [None if w >= seq else int(w) for w in cfg.layer_windows(seq)]
     for layer in range(cfg.n_layers):
-        h, aux, _ = _block_apply(tree_index(params["blocks"], layer), h, kind,
-                                 cfg, positions=positions,
-                                 window=windows[layer], mode=mode)
+        h, aux = run(block(tree_index(params["blocks"], layer), kind,
+                           windows[layer]), h)
         aux_total = aux_total + aux
     return h, aux_total
 
 
 # ---------------------------------------------------------------------------
-# forward: prefill / decode
+# forward: train / prefill / decode
 # ---------------------------------------------------------------------------
+
+def forward_train(params, batch: Dict[str, Tensor], cfg: ModelConfig
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token cross-entropy over one (micro)batch, as the reference
+    computes it: logits[:, :-1] against labels[:, 1:], labels of -1 as
+    padding, plus 0.01 x the MoE auxiliary loss.  ``batch`` holds
+    ``tokens`` (or ``inputs_embeds`` for an arch without an embedding
+    input), ``labels`` and, for M-RoPE, ``position_ids`` (3, B, S).
+    Returns (loss, {"ce", "aux"}), f32 scalars."""
+    tokens_or_embeds = batch.get("tokens", batch.get("inputs_embeds"))
+    b, s = tokens_or_embeds.shape[:2]
+    positions = _positions_for(batch, b, s, device=tokens_or_embeds.device)
+    h = _embed(params, batch, cfg, positions)
+    h, aux = _run_blocks(params, h, cfg, positions, "train")
+    h = L.norm_apply(params["final_norm"], h, cfg)
+    logits = _logits(params, h, cfg)[:, :-1]             # (B, S-1, V) f32
+    labels = batch["labels"][:, 1:]
+    lw = (labels >= 0).float()                           # -1 = padding
+    lse = torch.logsumexp(logits, -1)
+    tgt = torch.gather(logits, -1, labels.clamp_min(0)[..., None].long())[..., 0]
+    ce = torch.sum((lse - tgt) * lw) / lw.sum().clamp_min(1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
 
 def forward_prefill(params, batch: Dict[str, Tensor],
                     cfg: ModelConfig) -> Tensor:

@@ -10,7 +10,11 @@ reference's shapes (``tests/test_kernels.py``) plus a zero-decay anchor
 init and are held to 2e-4 in f32, the reference's own tolerance for its
 associative scan against the sequential recurrence.
 ``test_cuda_kernel_matches_plain`` holds the CUDA kernel against its plain
-version on the card."""
+version on the card; ``test_cuda_backward_matches_plain_autograd`` and
+``test_cuda_rec_block_gradients_match_the_cpu`` hold the scan's gradient
+(the ``RglruSeq`` Function, whose backward is one more K7 launch) against
+the plain recurrence's autograd there.  The Function's CPU path is tested
+in ``tests/test_torch_lm_train.py``."""
 
 import numpy as np
 import pytest
@@ -333,3 +337,86 @@ def test_cuda_routes_by_shape_and_agree_bit_for_bit():
     misaligned = torch.zeros(9, 2, 71, device=dev)[:, :, 1:]
     with pytest.raises(RuntimeError, match="tile route"):
         K._launch(misaligned, misaligned, route="tile")
+
+
+def _plain_grads(log_a, b, dh):
+    la, bb = (x.detach().clone().requires_grad_(True) for x in (log_a, b))
+    h = K.rglru_seq_plain(la, bb)
+    return torch.autograd.grad(h, (la, bb), dh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_backward_matches_plain_autograd(b_dtype):
+    """The K7 Function's backward on the card (one launch on the flipped,
+    shifted operands, counted as ``rglru_seq_bwd``) against autograd
+    through the plain recurrence on the same card, on the tile route (W =
+    64, 2560) and the lane route (W = 70), on contiguous operands and on
+    the model's (T, B, W) views.  dlog_a and db to 1e-5 of each one's
+    largest value in f32 (the same recurrence, exp's last bit aside); with
+    a bf16 b, h is saved in bf16, so dlog_a's h_{t-1} factor and db carry
+    one bf16 rounding: 2^-7 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    for seed, (t, bsz, w, route) in enumerate([(100, 3, 64, "tile"),
+                                              (4096, 2, 2560, "tile"),
+                                              (33, 3, 70, "lane")]):
+        log_a, b = _inputs(t, bsz, w, seed=seed, decay_scale=0.1)
+        dh = np.random.default_rng(seed + 50).normal(0, 1, b.shape).astype(np.float32)
+        la = torch.as_tensor(log_a, device=dev)
+        bb = torch.as_tensor(b, device=dev).to(b_dtype)
+        g = torch.as_tensor(dh, device=dev).to(b_dtype)
+        shifted = torch.cat([torch.zeros_like(la[:1]), la.flip(0)[:-1]])
+        assert K.tile_route_fits(shifted, g.float().flip(0)) is (route == "tile")
+        views = [(la, bb), tuple(x.transpose(0, 1).contiguous().transpose(0, 1)
+                                 for x in (la, bb))]
+        for x, y in views:
+            x, y = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+            before = dict(K.LAUNCHES)
+            h = K.rglru_seq_grad(x, y)
+            dla, db = torch.autograd.grad(h, (x, y), g)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["rglru_seq_bwd"] == before["rglru_seq_bwd"] + 1
+            assert sum(K.LAUNCHES.values()) == sum(before.values()) + 2
+            assert dla.dtype == torch.float32 and db.dtype == b_dtype
+            want_la, want_b = _plain_grads(x, y, g)
+            tol = 1e-5 if b_dtype == torch.float32 else 2 ** -7
+            for got, want in ((dla, want_la), (db.float(), want_b.float())):
+                assert bool(torch.isfinite(got).all())
+                torch.testing.assert_close(got, want, rtol=tol,
+                                           atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_rec_block_gradients_match_the_cpu(monkeypatch):
+    """A reduced rec block trained on the card: ``loss.backward()`` through
+    the K7 Function (one forward and one backward launch) gives every
+    parameter's gradient (w_x, w_gate, w_out, conv, w_a, w_i, b_a, b_i,
+    lam) equal to the CPU's plain-version run within 1e-4 of each leaf's
+    largest value (f32 products on the card; TF32 is off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = reduce_config(ARCH_CONFIGS["recurrentgemma-2b"])
+    from repro_torch.models.modules import unbox
+    p_cpu = unbox(TRG.init_rglru_block(torch.Generator().manual_seed(1), cfg))[0]
+    x = np.random.default_rng(46).normal(0, 1, (2, 40, cfg.d_model)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.detach().to(dev).requires_grad_(True) for k, v in p_cpu.items()}
+        before = dict(K.LAUNCHES)
+        y = TRG.rec_block_apply(p, torch.as_tensor(x, device=dev), cfg, "train")
+        y.square().sum().backward()
+        grads[dev] = {k: v.grad.cpu() for k, v in p.items()}
+        launched = {k: K.LAUNCHES[k] - before[k] for k in before}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert launched["rglru_seq_bwd"] == 1
+            assert launched["rglru_seq"] + launched["rglru_seq_lane"] == 1
+        else:
+            assert not any(launched.values())
+    for k, want in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][k], want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()), msg=k)
