@@ -22,7 +22,8 @@ paper's model (``train_qat``) on the card, the serving tier (the
 seeded fault injector, the GRU and rGLRU cells, the four-replica
 cluster), the explorer with the energy model, and the LM side's dense,
 MoE, RWKV-6, VLM and audio families with w8/w8a8 weights and an int8 KV
-cache (qwen1.5-0.5B at its published width and depth), in phases:
+cache (qwen1.5-0.5B at its published width and depth), LM training
+and, on the host mesh, the sharded LM, in phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -176,7 +177,25 @@ cache (qwen1.5-0.5B at its published width and depth), in phases:
      at full width in f32, every slot equal to its batch-of-one run, then
      with w8a8 weights (K4 once per quantised linear), and
      ``for_accelerator`` on the paper's session (K1), rows equal to
-     ``infer(path="int")``.
+     ``infer(path="int")``;
+ 12. the sharded LM on the host mesh (``launch.mesh.make_host_mesh``: one
+     card, a one-rank NCCL group opened before phase 11 — whose
+     ``launch.train`` runs on the mesh too — and destroyed before the
+     result lines; params, optimizer state and batches are ``DTensor``s
+     laid out by the logical-axis rules): (a) qwen1.5-0.5B at its
+     published width and depth through ``launch.train.main`` on the 1 x 1
+     mesh (B=8, S=512, remat full, deterministic algorithms), loss and
+     gradient norm of two steps and the whole state equal to the
+     unsharded ``make_train_step`` bit for bit (and within the reference's
+     2e-3 / 5e-2), then a step's wall, device busy, idle share and peak
+     memory without and with the mesh; (b)
+     RecurrentGemma-2B's period at B=1, T=4096 on the mesh: K7's forward,
+     remat recompute and backward through ``local_map`` on the local
+     shards, counted, the loss and gradient norm equal to the unsharded
+     step's; (c) qwen1.5-0.5B at full width cut to 2 layers: a state saved
+     on the mesh restores through ``restore(..., shardings=)`` into a state
+     drawn from another seed bit for bit, and one resumed step equals the
+     step never interrupted.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -1846,8 +1865,9 @@ def phase10_families(T, ARCH_CONFIGS, QuantConfig, mods, dev, card):
 # and the wave batcher
 # ---------------------------------------------------------------------------
 
-TRAIN_ARGV = ["--arch", QWEN, "--preset", "full", "--batch", "8", "--seq", "512",
-              "--device", "cuda"]
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_ARGV = ["--arch", QWEN, "--preset", "full", "--batch", str(TRAIN_B), "--seq",
+              str(TRAIN_S), "--device", "cuda"]
 # RecurrentGemma-2B cut to one period of its pattern, trained at T=4096 (the
 # prefill's length).  B is cut from the prefill's 2 to 1: at B=2 the f32
 # logits (2 x 4096 x 256,000) and their softcap and softmax chain peak at
@@ -2314,6 +2334,256 @@ def phase11_batcher(session, layer_mods, mods, qm, dev, card):
     log(f"phase 11e: for_accelerator (batch 16) on 37 windows: rows equal "
         f"infer(path='int'); launches {launches}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the sharded LM — training under the host mesh (DTensor params,
+# the logical-axis rules, K7 through local_map) and resharding checkpoints
+# ---------------------------------------------------------------------------
+
+LOSS_RTOL, GNORM_RTOL = 2e-3, 5e-2      # tests/test_distributed.py's bounds
+
+
+def held(name, got, want):
+    """``got`` against ``want``: the run fails beyond the reference's
+    distributed bounds (2e-3 relative on the loss, 5e-2 on the gradient
+    norm), then on any difference (deterministic algorithms on one card)."""
+    for k, rtol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL)):
+        rel = abs(got[k] - want[k]) / max(abs(want[k]), 1e-9)
+        check(rel <= rtol, f"{name}: {k} {got[k]} against {want[k]} "
+                           f"({rel:.3e} > {rtol})")
+        check(got[k] == want[k], f"{name}: {k} {got[k]} != {want[k]} under "
+                                 f"deterministic algorithms")
+
+
+def mesh_train(cfg, mesh, seed, plan, dev):
+    """(step_fn, state, shardings) of ``cfg`` on ``mesh``, params from a
+    ``torch.Generator`` seeded ``seed`` on ``dev``, laid out by the
+    config's rules as ``launch.train`` lays them out."""
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import partition as P
+    from repro_torch.training import step as TS
+    params, axes = T.init_model(cfg, torch.Generator(device=dev).manual_seed(seed))
+    shard = P.param_shardings(axes, mesh, cfg.sharding_overrides, params)
+    state = TS.init_train_state(P.distribute(params, shard), plan)
+    return TS.make_train_step(cfg, plan), state, shard
+
+
+def plain_train(cfg, seed, plan, dev):
+    """(step_fn, state) of ``cfg`` with no mesh: plain tensors on ``dev``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training import step as TS
+    params, _ = T.init_model(cfg, torch.Generator(device=dev).manual_seed(seed))
+    return TS.make_train_step(cfg, plan), TS.init_train_state(params, plan)
+
+
+def lm_batches(vocab, b, s, seed, dev, mesh=None, overrides=()):
+    """A step-keyed ``SyntheticLM`` batch on ``dev``; on ``mesh``, laid
+    out by ``launch.train.batch_shardings``."""
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.launch.train import batch_shardings
+    from repro_torch.sharding.partition import distribute
+    src = SyntheticLM(vocab, seed=seed)
+
+    def fn(i):
+        out = {k: torch.as_tensor(v, device=dev)
+               for k, v in src.batch(i, b, s).items()}
+        if mesh is None:
+            return out
+        return distribute(out, batch_shardings(out, mesh, overrides))
+    return fn
+
+
+def metrics_of(m):
+    return {k: float(m[k]) for k in ("loss", "grad_norm")}
+
+
+def same_leaves(a, b, what):
+    """Every leaf of two train states equal bit for bit (a DTensor's by its
+    full tensor)."""
+    from repro_torch.training.tree import tree_leaves_with_path
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t  # noqa: E731
+    pa, pb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    check([p for p, _ in pa] == [p for p, _ in pb], f"{what}: the trees differ")
+    for (p, x), (_, y) in zip(pa, pb):
+        check(torch.equal(full(x), full(y)), f"{what}: {'/'.join(p)} differs")
+    return len(pa)
+
+
+def phase12_qwen(train, mesh, dev, card):
+    """12a: qwen1.5-0.5B at full width through ``launch.train.main`` on the
+    1 x 1 host mesh (remat full, deterministic algorithms) against the
+    unsharded ``make_train_step`` on the same params and batches; then
+    a step's wall, device busy, idle share and peak memory without and
+    with the mesh, outside deterministic mode."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.sharding.partition import rules_context
+    from repro_torch.training import step as TS
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = ARCH_CONFIGS[QWEN]
+    steps = 2
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = train.main(TRAIN_ARGV + ["--steps", str(steps), "--remat", "full",
+                                       "--log-every", "1"], log=quiet)
+        sharded = out["state"]
+        check(all(type(x).__name__ == "DTensor"
+                  for x in [sharded["params"]["embed"],
+                            sharded["opt"]["mu"]["blocks"]["mlp"]["w_up"]]),
+              "launch.train's state is not on the mesh")
+        # launch.train's plan and batches, with no mesh
+        plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=10,
+                                          total_steps=steps))
+        step_fn, state = plain_train(cfg, 0, plan, dev)
+        batch_fn = lm_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, 0, dev)
+        for i in range(steps):
+            state, m = step_fn(state, batch_fn(i))
+            held(f"12a step {i + 1}", {k: out["history"][i][k]
+                                       for k in ("loss", "grad_norm")},
+                 metrics_of(m))
+        n = same_leaves(sharded, state, "12a: the mesh's state")
+        log(f"phase 12a: launch.train.main --arch {QWEN} --preset full --batch "
+            f"{TRAIN_B} --seq {TRAIN_S} --remat full on the 1 x 1 host mesh ({mesh}): losses "
+            f"{[h['loss'] for h in out['history']]}, grad norms "
+            f"{[h['grad_norm'] for h in out['history']]}, equal to the unsharded "
+            f"step bit for bit, and the {n} leaves of the state after {steps} "
+            f"steps (deterministic algorithms)")
+        del out, sharded, state, m
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+
+    plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=10, total_steps=20))
+    reads = {}
+    for name in ("unsharded", "mesh"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        if name.startswith("mesh"):
+            with rules_context(mesh, cfg.sharding_overrides):
+                step_fn, state, _ = mesh_train(cfg, mesh, 0, plan, dev)
+                sp = step_profile(step_fn, state, lm_batches(
+                    cfg.vocab_size, TRAIN_B, TRAIN_S, 0, dev, mesh,
+                    cfg.sharding_overrides), 2)
+        else:
+            step_fn, state = plain_train(cfg, 0, plan, dev)
+            sp = step_profile(step_fn, state,
+                              lm_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, 0, dev), 2)
+        peak = torch.cuda.max_memory_allocated(dev)
+        reads[name] = (sp["wait_ms"], sp["b2b_ms"], sp["busy_ms"], peak)
+        log(f"phase 12a: {QWEN} B={TRAIN_B} S={TRAIN_S} remat full, {name}: "
+            + step_clocks(sp, card) + f"; peak device memory {peak / 2**30:.3f} GiB")
+        if name == "mesh":
+            log(sp["avgs"].table(sort_by="self_cpu_time_total", row_limit=8))
+        del step_fn, state, sp
+        torch.cuda.empty_cache()
+    ratio = reads["mesh"][0] / reads["unsharded"][0]
+    log(f"phase 12a: the 1 x 1 mesh's step waited for is {ratio:.4f} x the "
+        f"unsharded step's, its device busy {reads['mesh'][2]:.6f} against "
+        f"{reads['unsharded'][2]:.6f} ms, on {card}")
+    return ratio
+
+
+def phase12_rgemma(mesh, mods, dev, card):
+    """12b: RecurrentGemma-2B's period at B=1, T=4096 on the 1 x 1 mesh:
+    K7's forward, remat recompute and backward on the local shards through
+    ``local_map``, counted; loss and gradient norm equal to the unsharded
+    step's (deterministic algorithms).  Returns the mesh step's launches."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.sharding.partition import rules_context
+    from repro_torch.training import step as TS
+    from repro_torch.training.optimizer import OptConfig
+
+    full = ARCH_CONFIGS["recurrentgemma-2b"]
+    cfg = full.replace(n_layers=len(full.recurrent.block_pattern))
+    n_rec = sum(k == "rec" for k in cfg.layer_kinds())
+    plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+    torch.use_deterministic_algorithms(True)
+    try:
+        step_fn, state = plain_train(cfg, 0, plan, dev)
+        _, m = step_fn(state, lm_batches(cfg.vocab_size, RG_TRAIN_B, RG_TRAIN_T,
+                                         1, dev)(0))
+        want = metrics_of(m)
+        del step_fn, state, m
+        torch.cuda.empty_cache()
+        with rules_context(mesh, cfg.sharding_overrides):
+            step_fn, state, _ = mesh_train(cfg, mesh, 0, plan, dev)
+            batch = lm_batches(cfg.vocab_size, RG_TRAIN_B, RG_TRAIN_T, 1, dev,
+                               mesh, cfg.sharding_overrides)(0)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts(mods)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step_fn(state, batch)
+            got = metrics_of(m)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counts(mods)
+        peak = torch.cuda.max_memory_allocated(dev)
+        del step_fn, state, m, batch
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    expect = {**{k: 0 for k in launches}, "rglru_seq": 2 * n_rec,
+              "rglru_seq_bwd": n_rec}
+    check(launches == expect, f"the mesh step launched {launches}, not {expect}")
+    held("12b", got, want)
+    log(f"phase 12b: RecurrentGemma-2B's period ({cfg.n_layers} layers) B={RG_TRAIN_B} "
+        f"T={RG_TRAIN_T} on the 1 x 1 mesh: loss {got['loss']}, grad norm "
+        f"{got['grad_norm']}, equal to the unsharded step bit for bit; K7 through "
+        f"local_map {launches} ({n_rec} rec blocks x forward + remat recompute, "
+        f"one backward each); the step {wall_ms:.3f} ms wall waited for (its "
+        f"first, deterministic algorithms), peak device memory "
+        f"{peak / 2**30:.3f} GiB on {card}")
+    return launches
+
+
+def phase12_checkpoint(mesh, dev, card):
+    """12c: qwen1.5-0.5B at full width cut to 2 layers on the mesh: a state
+    saved after one step restores into a freshly initialised state through
+    ``restore(..., shardings=)`` bit for bit, and one resumed step equals
+    the step never interrupted (deterministic algorithms)."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.sharding.partition import rules_context
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import step as TS
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = ARCH_CONFIGS[QWEN].replace(n_layers=2)
+    plan = TS.TrainPlan(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with rules_context(mesh, cfg.sharding_overrides):
+            step_fn, state, shard = mesh_train(cfg, mesh, 0, plan, dev)
+            batch_fn = lm_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, 2, dev, mesh,
+                                  cfg.sharding_overrides)
+            state, _ = step_fn(state, batch_fn(0))
+            t0 = time.perf_counter()
+            ckpt.save(str(root), state, 1)
+            save_s = time.perf_counter() - t0
+            straight, m_straight = step_fn(state, batch_fn(1))
+            _, fresh, _ = mesh_train(cfg, mesh, 99, plan, dev)
+            t0 = time.perf_counter()
+            restored = ckpt.restore(str(root), fresh, shardings={
+                "params": shard, "opt": {"mu": shard, "nu": shard}})
+            restore_s = time.perf_counter() - t0
+            n = same_leaves(restored, state, "12c: the restored state")
+            check(all(type(x).__name__ == "DTensor" for x in
+                      [restored["params"]["embed"], restored["opt"]["nu"]["embed"]]),
+                  "12c: the restored state is not on the mesh")
+            resumed, m_resumed = step_fn(restored, batch_fn(1))
+            held("12c resumed step", metrics_of(m_resumed), metrics_of(m_straight))
+            same_leaves(resumed, straight, "12c: the resumed step's state")
+        del state, straight, fresh, restored, resumed
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 12c: {QWEN} full width, 2 layers, on the mesh: saved after a "
+        f"step ({save_s:.3f} s), restored with shardings= into a state drawn "
+        f"from another seed ({restore_s:.3f} s), {n} leaves bit for bit; the "
+        f"resumed step equals the straight one bit for bit (loss "
+        f"{float(m_resumed['loss'])}) on {card}")
 
 
 def kernel_record(sp, launches, card):
@@ -2850,9 +3120,32 @@ def main() -> int:
             f"device busy, idle share {1 - busy_ms / (wall_ms / 3):.4f} on {card}")
 
     # -- phase 11: LM training, the training launcher, the wave batcher -------
+    from repro_torch.launch import mesh as lm_mesh
     from repro_torch.launch import train as lm_train
     del lm_params, cache, k7_in, lm_tokens, logits, tok
     torch.cuda.empty_cache()
+    # launch.train trains under the host mesh: its one-rank NCCL group is
+    # opened here on card 0 and destroyed before the result lines
+    torch.cuda.set_device(0)
+    lm_mesh.ensure_process_group("cuda")
+    try:
+        kernels = phases_11_12(lm_mesh, lm_train, kernels, rg, mods, session,
+                               layer_mods, qm, dev, card)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def phases_11_12(lm_mesh, lm_train, kernels, rg, mods, session, layer_mods, qm,
+                 dev, card):
+    """Phases 11 and 12 in the host mesh's process group; returns the
+    kernel records with their launches counted."""
     t0 = time.perf_counter()
     lm11_launches = {}
     for name, part in (
@@ -2872,16 +3165,31 @@ def main() -> int:
         log(f"phase {name}: done in {time.perf_counter() - t1:.1f} s")
     log(f"phase 11: done in {time.perf_counter() - t0:.1f} s; launches "
         f"{lm11_launches}")
-    for k in kernels:
-        k["launches"] += lm11_launches.get(k["counter"], 0)
-    kernels.append(kernel_record(bwd_spec, lm11_launches["rglru_seq_bwd"], card))
 
-    log(card)
-    log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    # -- phase 12: the sharded LM on the host mesh ----------------------------
+    t0 = time.perf_counter()
+    mesh = lm_mesh.make_host_mesh()
+    check(tuple(mesh.mesh_dim_names) == ("data", "model")
+          and tuple(mesh.shape) == (1, 1), f"the host mesh is {mesh}")
+    lm12_launches = {}
+    for name, part in (
+            ("12a", lambda: phase12_qwen(lm_train, mesh, dev, card)),
+            ("12b", lambda: phase12_rgemma(mesh, mods, dev, card)),
+            ("12c", lambda: phase12_checkpoint(mesh, dev, card))):
+        t1 = time.perf_counter()
+        got = part()
+        if name == "12b":
+            lm12_launches = got
+        torch.cuda.empty_cache()
+        log(f"phase {name}: done in {time.perf_counter() - t1:.1f} s")
+    log(f"phase 12: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{lm12_launches}")
+    for k in kernels:
+        k["launches"] += (lm11_launches.get(k["counter"], 0)
+                          + lm12_launches.get(k["counter"], 0))
+    kernels.append(kernel_record(bwd_spec, lm11_launches["rglru_seq_bwd"]
+                                 + lm12_launches["rglru_seq_bwd"], card))
+    return kernels
 
 
 if __name__ == "__main__":

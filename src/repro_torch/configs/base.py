@@ -2,9 +2,10 @@
 ``repro/configs/base.py``.
 
 One ``ModelConfig`` describes any of the reference's architectures; one
-``ShapeSpec`` describes one input-shape cell.  The reference's
-``input_specs`` (dry-run stand-ins with shardings) has no counterpart
-here.
+``ShapeSpec`` describes one input-shape cell; ``batch_axes`` names a
+batch's logical axes for the sharding rules.  The reference's
+``input_specs`` and ``shape_applicable`` (the dry run's inputs) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -160,3 +161,9 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
 }
+
+
+def batch_axes():
+    """Logical axes of a (batch, seq) input: the batch splits by the
+    ``"batch"`` rule, the sequence stays whole."""
+    return ("batch", None)  # (batch, seq)

@@ -204,7 +204,8 @@ def _replicas_fit(point, base_model, base_accel, *,
 def replicas_fit_devices(kind: Optional[str] = None) -> Rule:
     """An ``n``-replica point needs ``n`` distinct devices of type ``kind``
     (the production posture of ``launch.mesh.serving_devices``; ``None``
-    counts cards when one is visible, else the CPU) — a replica that
+    counts the cards, and with none visible the rule fails with that
+    reason: nothing counts the CPU unasked) — a replica that
     silently shares a device is a capacity-planning bug, not a
     candidate."""
     return Rule("replicas_fit_devices",

@@ -164,7 +164,8 @@ class SearchSpace:
         else the violated rule's reason (prefixed with its name).  The
         sweep prunes non-``None`` points before measurement and records
         them with the reason.  ``kind`` is the type of device the sweep
-        deploys on (the default tree's replica rule counts those)."""
+        deploys on (the default tree's replica rule counts those; ``None``
+        means the cards)."""
         node = self.constraints
         if node is None:
             from repro_torch.explore.constraints import default_constraints

@@ -22,17 +22,21 @@ quantisation enabled take the fake-quant product ``core.quant.fq_matmul``
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hard_act import HARD_VARIANT, get_float_act
 from repro_torch.core.quant import (QuantConfig, _p2_round_scale, fq_matmul,
                                    int8_matmul)
 from repro_torch.models.modules import Boxed, param
+from repro_torch.sharding.partition import constrain, place
 
 Tensor = torch.Tensor
 
@@ -72,8 +76,38 @@ def linear(x: Tensor, w, quant: QuantConfig, mode: str = "train") -> Tensor:
         return y.reshape(x.shape[:-1] + shp[1:])
     shp = w.shape
     w2 = w.reshape(shp[0], -1).to(x.dtype)
+    out_pl = None
+    if isinstance(x, DTensor):
+        x, w2, out_pl = _place_operands(x, w2)
     y = fq_matmul(x, w2, quant) if mode == "train" and quant.enabled else x @ w2
+    if out_pl is not None:
+        y = place(y, out_pl)
     return y.reshape(x.shape[:-1] + shp[1:])
+
+
+def _place_operands(x: DTensor, w2: DTensor):
+    """Lay out x @ w2 under a mesh before the product: per mesh axis, x
+    split along a leading dim keeps it and takes the whole weight (FSDP's
+    gather); a weight split by output column keeps it with x whole
+    (column-parallel); a weight split by contraction row takes x split
+    likewise (row-parallel; the partial sums are all-reduced after).
+    Returns (x, w2, the product's placements).  Left to itself DTensor may
+    split the flattened output over an axis that the unflattened dims
+    cannot take (2 KV heads over 4-way TP), which GSPMD pads and DTensor
+    refuses, in the forward or in the gradient's view back."""
+    last = x.ndim - 1
+    xpl, wpl, ypl = [], [], []
+    for xp, wp in zip(x.placements, w2.placements):
+        if isinstance(xp, Shard) and xp.dim < last:
+            xpl.append(xp), wpl.append(Replicate()), ypl.append(xp)
+        elif wp == Shard(1):
+            xpl.append(Replicate()), wpl.append(wp), ypl.append(Shard(last))
+        elif wp == Shard(0):
+            xpl.append(Shard(last)), wpl.append(wp), ypl.append(Replicate())
+        else:
+            xpl.append(Replicate()), wpl.append(Replicate())
+            ypl.append(Replicate())
+    return place(x, xpl), place(w2, wpl), tuple(ypl)
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +350,8 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
     if not (a and a.sinusoidal):
         q = apply_rope(q, positions, a.rope_theta, a.mrope_sections)
         k = apply_rope(k, positions, a.rope_theta, a.mrope_sections)
+    q = constrain(q, "batch", None, "act_heads", None)
+    k = constrain(k, "batch", None, "act_heads", None)
     softcap = a.attn_softcap if a else None
 
     if mode == "decode":
@@ -344,10 +380,30 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
         y = linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
         return y, st
 
-    out = flash_attention(q, k, v, causal=True, window=window,
-                          softcap=softcap, hard_softcap=cfg.hard_acts,
-                          scale=scale)
+    attend = functools.partial(flash_attention, causal=True, window=window,
+                               softcap=softcap, hard_softcap=cfg.hard_acts,
+                               scale=scale)
+    out = (_local_attention(attend, q, k, v) if isinstance(q, DTensor)
+           else attend(q, k, v))
     return linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
+
+
+def _local_attention(attend, q: DTensor, k: DTensor, v: DTensor) -> DTensor:
+    """``attend(q, k, v)`` under a mesh, on each rank's own batch rows and
+    kv-head groups through ``local_map``: heads stay split where q's and
+    k's both are (their blocks then hold whole GQA groups), the sequence
+    whole.  Elsewhere the heads are gathered: a split of q's heads that
+    k's fewer heads cannot follow has no DTensor layout."""
+    pl = []
+    for qp, kp in zip(q.placements, k.placements):
+        if qp == Shard(0) or (qp == Shard(2) and kp == Shard(2)):
+            pl.append(qp)
+        else:
+            pl.append(Replicate())
+    pl = tuple(pl)
+    return local_map(attend, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh)(*(place(t, pl)
+                                                  for t in (q, k, v)))
 
 
 # ---------------------------------------------------------------------------
@@ -378,4 +434,5 @@ def mlp_apply(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
             linear(x, p["w_up"], cfg.quant, mode)
     else:
         h = f(linear(x, p["w_up"], cfg.quant, mode))
+    h = constrain(h, "batch", None, "mlp")
     return linear(h, p["w_down"], cfg.quant, mode)

@@ -19,6 +19,13 @@ recurrence goes through ``rglru_seq_grad``, whose backward is one more K7
 launch; prefill calls the kernel plainly.  Decode keeps the O(1) state and
 is plain torch, as in the reference.
 
+Under a mesh (``sharding.partition.rules_context``) the operands are
+``DTensor``s and the kernel, which reads raw pointers and strides, runs
+on each rank's local shards through ``local_map``: the recurrence is
+independent across batch and width, so batch split over ``data`` and W
+over ``model`` (``"lru"``) give the exact result; time stays whole.  The
+Function's backward runs inside the same ``local_map``.
+
 The dtypes follow the reference: the conv multiplies the bf16 ``W_x x``
 by the f32 conv weights, so everything from the conv to ``W_out``'s
 product runs in f32.
@@ -30,12 +37,15 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hard_act import hard_sigmoid_star
 from repro_torch.kernels import rglru_scan as K
 from repro_torch.models.layers import act_fn, linear
 from repro_torch.models.modules import Boxed, param
+from repro_torch.sharding.partition import constrain, place
 
 Tensor = torch.Tensor
 
@@ -82,9 +92,18 @@ def rglru_scan(p, x: Tensor, cfg: ModelConfig, mode: str = "train") -> Tensor:
     log_a, mult, i = _decay(p, x, cfg)
     b = mult * (i * x)
     scan = K.rglru_seq_grad if mode == "train" else K.rglru_seq
-    # (T, B, W) views in, (B, T, W) out: the kernel takes strides.
-    h = scan(log_a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
-    return h.to(x.dtype)
+
+    def run(log_a, b):
+        # (T, B, W) views in, (B, T, W) out: the kernel takes strides.
+        return scan(log_a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
+
+    if isinstance(b, DTensor):
+        log_a = constrain(log_a, "batch", None, "lru")
+        b = constrain(b, "batch", None, "lru")
+        pl = tuple(b.placements)       # the rules keep time ("seq") whole
+        run = local_map(run, out_placements=(pl,), in_placements=(pl, pl),
+                        device_mesh=b.device_mesh)
+    return run(log_a, b).to(x.dtype)
 
 
 def rglru_step(p, x_t: Tensor, h_prev: Tensor, cfg: ModelConfig) -> Tensor:
@@ -93,12 +112,32 @@ def rglru_step(p, x_t: Tensor, h_prev: Tensor, cfg: ModelConfig) -> Tensor:
     return torch.exp(log_a)[:, 0] * h_prev + (mult * (i * x_t))[:, 0]
 
 
-def _causal_conv(p, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Depthwise causal conv1d, width cfg.recurrent.conv_width."""
-    cw = cfg.recurrent.conv_width
+def _conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    cw = w.shape[0]
     xp = F.pad(x, (0, 0, cw - 1, 0))
-    y = sum(xp[:, k:k + x.shape[1], :] * p["conv_w"][k] for k in range(cw))
-    return y + p["conv_b"]
+    y = sum(xp[:, k:k + x.shape[1], :] * w[k] for k in range(cw))
+    return y + b
+
+
+def _causal_conv(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Depthwise causal conv1d, width cfg.recurrent.conv_width.  Under a
+    mesh it runs on each rank's own rows and channels through
+    ``local_map`` (each channel's conv is its own; time stays whole): the
+    padded, shifted products have no dependable DTensor layout (torch
+    2.11 lost a mesh dim of the padded tensor's placements)."""
+    if not isinstance(x, DTensor):
+        return _conv(x, p["conv_w"], p["conv_b"])
+    pl = tuple(x.placements)
+    w_pl = tuple(Shard(1) if q == Shard(2) else Replicate() for q in pl)
+    b_pl = tuple(Shard(0) if q == Shard(2) else Replicate() for q in pl)
+    # the weights' local gradients sum only this rank's rows
+    row = lambda q, w: Partial() if q == Shard(0) else w  # noqa: E731
+    return local_map(_conv, out_placements=(pl,),
+                     in_placements=(pl, w_pl, b_pl),
+                     in_grad_placements=(pl, tuple(map(row, pl, w_pl)),
+                                         tuple(map(row, pl, b_pl))),
+                     device_mesh=x.device_mesh)(
+        x, place(p["conv_w"], w_pl), place(p["conv_b"], b_pl))
 
 
 def rec_block_apply(p, x: Tensor, cfg: ModelConfig, mode: str = "train",
@@ -110,6 +149,7 @@ def rec_block_apply(p, x: Tensor, cfg: ModelConfig, mode: str = "train",
     returns (y, new_state)."""
     gate = act_fn("gelu", cfg)(linear(x, p["w_gate"], cfg.quant, mode))
     gx = linear(x, p["w_x"], cfg.quant, mode)
+    gx = constrain(gx, "batch", None, "lru")
     if mode == "decode":
         window = torch.cat([state["conv"], gx], dim=1)          # (B, cw, W)
         dt = torch.promote_types(window.dtype, p["conv_w"].dtype)

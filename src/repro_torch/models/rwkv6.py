@@ -34,11 +34,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hard_act import hard_sigmoid_star
 from repro_torch.models.layers import linear
 from repro_torch.models.modules import Boxed, param
+from repro_torch.sharding.partition import constrain, place
 
 Tensor = torch.Tensor
 
@@ -186,6 +189,29 @@ def wkv_chunked(r, k, v, w, u, state: Optional[Tensor] = None,
     return y.reshape(b, nc * c, h, n)[:, :t], state
 
 
+def _wkv_local(r, k, v, w, u, chunk: int):
+    """``wkv_chunked`` from a zero state under a mesh, on each rank's own
+    batch rows and heads through ``local_map``: every (row, head) runs
+    its own recurrence, so the split is exact; time stays whole.  Its
+    chunked einsums over a split batch and heads have no working DTensor
+    layout of their own, and one local call spares the host the dispatch
+    of each of them."""
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in r.placements)
+    u_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in pl)
+    # u's local gradient sums only this rank's rows: partial over batch
+    u_grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(pl, u_pl))
+    s_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+    args = [place(t, want) for t, want in zip((r, k, v, w, u),
+                                             (pl,) * 4 + (u_pl,))]
+    return local_map(lambda r, k, v, w, u: wkv_chunked(r, k, v, w, u, None,
+                                                       chunk),
+                     out_placements=(pl, s_pl),
+                     in_placements=(pl,) * 4 + (u_pl,),
+                     in_grad_placements=(pl,) * 4 + (u_grad,),
+                     device_mesh=r.device_mesh)(*args)
+
+
 # ---------------------------------------------------------------------------
 # block
 # ---------------------------------------------------------------------------
@@ -222,10 +248,14 @@ def time_mix_apply(p, x: Tensor, cfg: ModelConfig, mode: str = "train",
     w = (p["w0"] + _mm(torch.tanh(_mm(xw, p["wl_a"])), p["wl_b"])
          ).reshape(b, t, h, n)
     u = p["u"].reshape(h, n)
+    r = constrain(r, "batch", None, "act_heads", None)
+    k = constrain(k, "batch", None, "act_heads", None)
 
     wkv_state = state["wkv"] if state else None
     if mode == "decode" or t == 1:
         y, s_new = wkv_sequential(r, k, v, w, u, wkv_state)
+    elif isinstance(r, DTensor):
+        y, s_new = _wkv_local(r, k, v, w, u, cfg.rwkv.chunk)
     else:
         y, s_new = wkv_chunked(r, k, v, w, u, wkv_state, cfg.rwkv.chunk)
     y = y.reshape(b, t, d).to(x.dtype)
@@ -246,6 +276,7 @@ def channel_mix_apply(p, x: Tensor, cfg: ModelConfig, mode: str = "train",
     xk = x + (xx - x) * p["cm_mu_k"]
     r = _sigmoid(linear(xr, p["cm_r"], cfg.quant, mode), cfg)
     k = torch.square(F.relu(linear(xk, p["cm_k"], cfg.quant, mode)))
+    k = constrain(k, "batch", None, "mlp")
     y = r * linear(k, p["cm_v"], cfg.quant, mode)
     if state is not None or mode == "decode":
         return y, {"cm_shift": x[:, -1]}

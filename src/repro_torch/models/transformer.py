@@ -42,6 +42,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.modules import param, tree_index, tree_leaves, unbox
+from repro_torch.sharding.partition import PRODUCTION_TP, constrain
 
 Tensor = torch.Tensor
 
@@ -179,7 +180,8 @@ def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
         h = L.mlp_apply(p["mlp"], h, cfg, mode)
     if cfg.post_norms:
         h = L.norm_apply(p["ln2_post"], h, cfg)
-    return x + h.to(x.dtype), aux, new_state
+    x = constrain(x + h.to(x.dtype), "batch", None, None)
+    return x, aux, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +205,7 @@ def _embed(params, batch: Dict[str, Tensor], cfg: ModelConfig,
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     if cfg.attn and cfg.attn.sinusoidal:
         h = h + L.sinusoidal_embedding(positions, cfg.d_model).to(h.dtype)
-    return h
+    return constrain(h, "batch", None, None)
 
 
 def _logits(params, h: Tensor, cfg: ModelConfig) -> Tensor:
@@ -221,7 +223,7 @@ def _logits(params, h: Tensor, cfg: ModelConfig) -> Tensor:
         cap = cfg.final_softcap
         logits = torch.clamp(logits, -cap, cap) if cfg.hard_acts \
             else cap * torch.tanh(logits / cap)
-    return logits
+    return constrain(logits, "batch", None, "vocab")
 
 
 def _positions_for(batch, b: int, s: int, device=None) -> Tensor:
@@ -305,7 +307,11 @@ def forward_train(params, batch: Dict[str, Tensor], cfg: ModelConfig
     h = _embed(params, batch, cfg, positions)
     h, aux = _run_blocks(params, h, cfg, positions, "train")
     h = L.norm_apply(params["final_norm"], h, cfg)
-    logits = _logits(params, h, cfg)[:, :-1]             # (B, S-1, V) f32
+    # The loss takes whole vocab rows: under a mesh the vocab-sharded
+    # logits are gathered over "model" first (a gather against a vocab
+    # shard has no working DTensor strategy).
+    logits = constrain(_logits(params, h, cfg)[:, :-1],  # (B, S-1, V) f32
+                       "batch", None, None)
     labels = batch["labels"][:, 1:]
     lw = (labels >= 0).float()                           # -1 = padding
     lse = torch.logsumexp(logits, -1)
@@ -327,17 +333,18 @@ def forward_prefill(params, batch: Dict[str, Tensor],
     return _logits(params, h[:, -1:], cfg)
 
 
-def cache_spec(cfg: ModelConfig, batch: int,
-               seq_len: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} for the decode cache.  The reference also
-    gives each entry logical axes for sharding, which a single card does
-    not need.
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int
+               ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype, Tuple]]:
+    """{name: (shape, dtype, logical_axes)} for the decode cache.
 
     The attention KV cache is bounded by the window when every attention
     layer is windowed (a ring buffer in decode).  KV is bf16, or int8 with
     f32 per-(token, head) scales when ``cfg.quant.quantize_kv``; the conv
     and token-shift states are bf16 and the recurrent states f32, whatever
-    the activation dtype."""
+    the activation dtype.  The KV cache shards its heads over the
+    production TP width when they divide it, else its sequence dim
+    (``kv_seq``: sequence-parallel decode attention), as the reference
+    lays it out."""
     kinds = cfg.layer_kinds()
     specs = {}
     n_attn = sum(k == "attn" for k in kinds)
@@ -345,30 +352,37 @@ def cache_spec(cfg: ModelConfig, batch: int,
         s_cache = max(cfg.layer_windows(seq_len))
         kv_shape = (n_attn, batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
         kv_dtype = torch.int8 if cfg.quant.quantize_kv else torch.bfloat16
-        specs["k"] = (kv_shape, kv_dtype)
-        specs["v"] = (kv_shape, kv_dtype)
+        seq_ax = None if cfg.n_kv_heads % PRODUCTION_TP == 0 else "kv_seq"
+        axes = ("layers", "batch", seq_ax, "kv_heads", None)
+        specs["k"] = (kv_shape, kv_dtype, axes)
+        specs["v"] = (kv_shape, kv_dtype, axes)
         if cfg.quant.quantize_kv:
-            specs["k_scale"] = (kv_shape[:-1], torch.float32)
-            specs["v_scale"] = (kv_shape[:-1], torch.float32)
+            specs["k_scale"] = (kv_shape[:-1], torch.float32, axes[:-1])
+            specs["v_scale"] = (kv_shape[:-1], torch.float32, axes[:-1])
     n_rec = sum(k == "rec" for k in kinds)
     if n_rec:
         w, cw = cfg.recurrent.lru_width, cfg.recurrent.conv_width
-        specs["rec_h"] = ((n_rec, batch, w), torch.float32)
-        specs["rec_conv"] = ((n_rec, batch, cw - 1, w), torch.bfloat16)
+        specs["rec_h"] = ((n_rec, batch, w), torch.float32,
+                          ("layers", "batch", "lru"))
+        specs["rec_conv"] = ((n_rec, batch, cw - 1, w), torch.bfloat16,
+                             ("layers", "batch", None, "lru"))
     n_rwkv = sum(k == "rwkv" for k in kinds)
     if n_rwkv:
         hd = cfg.rwkv.head_dim
         nh = cfg.d_model // hd
-        specs["wkv"] = ((n_rwkv, batch, nh, hd, hd), torch.float32)
-        specs["tm_shift"] = ((n_rwkv, batch, cfg.d_model), torch.bfloat16)
-        specs["cm_shift"] = ((n_rwkv, batch, cfg.d_model), torch.bfloat16)
+        specs["wkv"] = ((n_rwkv, batch, nh, hd, hd), torch.float32,
+                        ("layers", "batch", "act_heads", None, None))
+        specs["tm_shift"] = ((n_rwkv, batch, cfg.d_model), torch.bfloat16,
+                             ("layers", "batch", None))
+        specs["cm_shift"] = ((n_rwkv, batch, cfg.d_model), torch.bfloat16,
+                             ("layers", "batch", None))
     return specs
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device=None) -> Dict[str, Tensor]:
     return {k: torch.zeros(sh, dtype=dt, device=device)
-            for k, (sh, dt) in cache_spec(cfg, batch, seq_len).items()}
+            for k, (sh, dt, _) in cache_spec(cfg, batch, seq_len).items()}
 
 
 # block kind -> (state key, cache key) pairs

@@ -1,7 +1,14 @@
-"""Placement helpers — counterpart of ``repro/sharding``.  Only
-``pin_to_device`` (the serving cluster's per-replica placement) is
-ported; the LM side's logical-axis rules wait for the sharded LM."""
+"""Placement — counterpart of ``repro/sharding``: the LM side's
+logical-axis rules on a ``DeviceMesh`` (``DTensor`` placements, the
+context-scoped ``constrain``) and the serving cluster's per-replica
+placement."""
 
-from repro_torch.sharding.partition import pin_to_device  # noqa: F401
+from repro_torch.sharding.partition import (  # noqa: F401
+    DEFAULT_RULES, PRODUCTION_TP, ParamSharding, constrain, distribute,
+    logical_to_spec, param_shardings, pin_to_device, place,
+    replica_shardings, resolve_rules, rules_context, spec_to_placements)
 
-__all__ = ["pin_to_device"]
+__all__ = ["DEFAULT_RULES", "PRODUCTION_TP", "ParamSharding", "constrain",
+           "distribute", "logical_to_spec", "param_shardings",
+           "pin_to_device", "place", "replica_shardings", "resolve_rules",
+           "rules_context", "spec_to_placements"]

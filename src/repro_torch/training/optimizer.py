@@ -7,6 +7,10 @@ to the last bit of the library functions (``cos``, ``pow``, ``sqrt``).
 ``torch.optim`` is not used: its AdamW orders the update differently.
 The state mirrors the param tree; every tensor stays on the params'
 device, the step count included, so an update never waits on the host.
+Under a mesh the params and gradients are ``DTensor``s: the moments are
+made in the params' placements (``zeros_like``), and the global norm sums
+each leaf's partial sum of squares, which DTensor reduces across the
+ranks that split the leaf, into one replicated norm.
 """
 
 from __future__ import annotations

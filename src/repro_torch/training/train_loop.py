@@ -96,13 +96,16 @@ class Trainer:
             signal.signal(s, h)
 
     # --- resume ------------------------------------------------------------
-    def maybe_resume(self) -> int:
+    def maybe_resume(self, shardings=None) -> int:
+        """Restore the latest checkpoint, if any (``shardings``: see
+        ``checkpoint.restore``); returns the step to start from."""
         if not self.loop.ckpt_dir:
             return 0
         last = ckpt_lib.latest_step(self.loop.ckpt_dir)
         if last is None:
             return 0
-        self.state = ckpt_lib.restore(self.loop.ckpt_dir, self.state, step=last)
+        self.state = ckpt_lib.restore(self.loop.ckpt_dir, self.state,
+                                      step=last, shardings=shardings)
         self.log(f"[trainer] resumed from step {last}")
         return last
 
