@@ -23,7 +23,9 @@ seeded fault injector, the GRU and rGLRU cells, the four-replica
 cluster), the explorer with the energy model, and the LM side's dense,
 MoE, RWKV-6, VLM and audio families with w8/w8a8 weights and an int8 KV
 cache (qwen1.5-0.5B at its published width and depth), LM training
-and, on the host mesh, the sharded LM, in phases:
+and, on the host mesh, the sharded LM's training, prefill and decode,
+with the LM dry run held against the card and the port's quickstart, in
+phases:
 
   1. the card, torch/CUDA versions and the kernels' build time;
   2. every kernel against its plain torch version on the card: the LSTM
@@ -195,7 +197,30 @@ and, on the host mesh, the sharded LM, in phases:
      step's; (c) qwen1.5-0.5B at full width cut to 2 layers: a state saved
      on the mesh restores through ``restore(..., shardings=)`` into a state
      drawn from another seed bit for bit, and one resumed step equals the
-     step never interrupted.
+     step never interrupted;
+ 13. serving on the host mesh, the dry run and the examples (after phase
+     12, on its 1 x 1 mesh): (a) qwen1.5-0.5B at its published width and
+     depth, the bf16 prefill at B=1, T=2048, then 4 decode steps at batch 4
+     against a 2048-deep cache (filled from a seeded generator), float and
+     w8a8 with the int8 KV cache: logits and tokens equal the unsharded
+     steps' bit for bit, K4 once per quantised linear of a w8a8 step (168),
+     each through ``local_map``, and each step's wall with and without the
+     mesh; (b) RecurrentGemma-2B's prefill at B=2, T=4096 on the mesh with
+     K7 through ``local_map`` 18 times, then 16 decode steps, both equal to
+     phase 6's unsharded results bit for bit; (c) the dry run
+     (``launch/dryrun.py``, a child process on a one-rank fake world) of
+     (a)'s float prefill and decode against the same steps on the card: its
+     ``flops_global`` within 1% of ``FlopCounterMode`` on the card, its
+     peak within 25% of ``max_memory_allocated`` over the step (the eager
+     step donates nothing, so the record's undonated peak); (d) four
+     production cells of ``python -m repro_torch.launch.dryrun`` on the
+     card's host CPU, processes that run from phase 11's start on
+     (qwen1.5-0.5b ``train_4k`` and recurrentgemma-2b ``long_500k`` on
+     16x16, qwen1.5-0.5b ``long_500k`` skipped by the reference's rule,
+     mixtral-8x7b ``decode_32k --quant-serve --multi-pod``), rendered by
+     ``analysis.report``; (e) ``examples/torch/quickstart.py`` (K1).  The
+     dry run's numbers are modelled with the H100 data sheet's rates, not
+     measured.
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -729,7 +754,9 @@ def phase2_rglru(rg, full_inputs, dev):
 
 def phase_lm(T, serve, mods, params, cfg, tokens, dev):
     """RecurrentGemma-2B's prefill, the serving entry and prefill against
-    step-by-step decode.  Returns the launch counts of the prefill."""
+    step-by-step decode.  Returns the launch counts of the prefill and the
+    unsharded results phase 13b holds the mesh to: the prefill's logits
+    and the first ``LM_DECODE`` steps' logits of the bf16 prompt decode."""
     reset_counts(mods)
     logits = T.forward_prefill(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize()
@@ -761,16 +788,19 @@ def phase_lm(T, serve, mods, params, cfg, tokens, dev):
     # largest of the 2 x 256,000 last logits by more than that, so bf16 is
     # held to the distance between its own prefill and the f32 one.
     prompt = tokens[:, :32]
+    kept = []
 
-    def last_logits(c):
+    def last_logits(c, keep=False):
         pre = T.forward_prefill(params, {"tokens": prompt}, c)
         cache = T.init_cache(c, prompt.shape[0], prompt.shape[1], device=dev)
         for t in range(prompt.shape[1]):
             step, cache = T.forward_decode(params, cache, {
                 "tokens": prompt[:, t:t + 1], "cache_pos": t}, c)
+            if keep and t < LM_DECODE:
+                kept.append(step)
         return pre[:, -1], step[:, 0]
 
-    pre16, dec16 = last_logits(cfg)
+    pre16, dec16 = last_logits(cfg, keep=True)
     pre32, dec32 = last_logits(cfg.replace(dtype="float32"))
     maxdiff = lambda a, b: float((a - b).abs().max())
     err32, err16, floor = maxdiff(pre32, dec32), maxdiff(pre16, dec16), \
@@ -781,7 +811,7 @@ def phase_lm(T, serve, mods, params, cfg, tokens, dev):
     log(f"phase 6: a 32-token prompt decoded step by step against the prefill's "
         f"last logits: f32 max |err| {err32} (bound 0.3), bf16 {err16} (bound: "
         f"bf16 prefill vs f32 prefill, {floor})")
-    return launches
+    return launches, {"prefill": logits, "prompt": prompt, "decode": kept}
 
 
 def phase7_train(repro_torch, model, accel, mods, dev, card):
@@ -2586,6 +2616,427 @@ def phase12_checkpoint(mesh, dev, card):
         f"{float(m_resumed['loss'])}) on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: prefill and decode on the host mesh (K4 and K7 through local_map),
+# the dry run against the card, the production dry-run cells and the port's
+# quickstart
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 2048, 4   # decode batch, cache depth, steps
+# 13d: production cells of the dry run, each run as the CLI runs it
+SWEEP_CELLS = (("qwen1.5-0.5b", "train_4k"), ("recurrentgemma-2b", "long_500k"),
+               ("qwen1.5-0.5b", "long_500k"),
+               ("mixtral-8x7b", "decode_32k", "--quant-serve", "--multi-pod"))
+SWEEP_STATUS = ("ok", "ok", "skipped", "ok")     # the reference's long_500k rule
+ROOT = Path(__file__).resolve().parent
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+# 13c: the dry run's cells on a one-rank fake world at 13a's shapes, in a
+# child process (a fake process group cannot share this one's)
+DRYRUN_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun as D
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+D.make_production_mesh = lambda *, multi_pod=False, device_type="cpu": \
+    DeviceMesh(device_type, torch.arange(1).reshape(1, 1),
+               mesh_dim_names=("data", "model"))
+recs = [D.run_cell(arch, ShapeSpec(*spec), False)
+        for arch, spec in json.loads(sys.argv[1])]
+dist.destroy_process_group()
+print(json.dumps(recs))
+"""
+DRY_FLOPS_RTOL, DRY_PEAK_RTOL = 0.01, 0.25
+
+
+def child_env():
+    """The environment of a CPU-only child process of the port."""
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+                OMP_NUM_THREADS="1")
+
+
+def start_sweep():
+    """13d's cells, one CPU process each, all started at once: they need no
+    card and run beside phases 11-13.  Returns [(cell, process, record
+    path)]."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    procs = []
+    for i, cell in enumerate(SWEEP_CELLS):
+        out = DRYRUN_DIR / f"cell{i}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               cell[0], "--shape", cell[1], *cell[2:], "--out", str(out)]
+        with open(out.with_suffix(".log"), "w") as f:
+            procs.append((cell, subprocess.Popen(
+                cmd, env=child_env(), cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT), out))
+    return procs
+
+
+def mesh_batch(batch, mesh, cfg):
+    """A model batch on ``mesh`` (``launch.train.batch_shardings``);
+    ``cache_pos`` stays a Python int."""
+    from repro_torch.launch.train import batch_shardings
+    from repro_torch.sharding.partition import distribute
+    t = {k: v for k, v in batch.items() if k != "cache_pos"}
+    out = distribute(t, batch_shardings(t, mesh, cfg.sharding_overrides))
+    if "cache_pos" in batch:
+        out["cache_pos"] = batch["cache_pos"]
+    return out
+
+
+def full(t):
+    check(type(t).__name__ == "DTensor", f"a mesh result is a plain {type(t)}")
+    return t.full_tensor()
+
+
+def filled_cache(T, cfg, dev, seed):
+    """``T.init_cache(cfg, SERVE_B, SERVE_S)`` filled from a seeded
+    generator: bf16 KV in N(0, 1), int8 codes in [-127, 127] with scales in
+    [0.001, 0.021)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, v in T.init_cache(cfg, SERVE_B, SERVE_S, device=dev).items():
+        if v.dtype == torch.int8:
+            v = torch.randint(-127, 128, v.shape, generator=gen, device=dev,
+                              dtype=torch.int8)
+        elif k.endswith("_scale"):
+            v = torch.rand(v.shape, generator=gen, device=dev) * 0.02 + 0.001
+        else:
+            v = torch.randn(v.shape, generator=gen, device=dev).to(v.dtype)
+        out[k] = v
+    return out
+
+
+def phase13_qwen(mesh, mods, layer_mods, dev, card):
+    """13a: qwen1.5-0.5B at full width on the 1 x 1 mesh: the bf16 prefill
+    at B=1, T=2048, then SERVE_STEPS decode steps at batch SERVE_B against
+    a SERVE_S-deep cache, float and w8a8 with the int8 KV cache; every
+    result equal to the unsharded step's bit for bit, K4 once per
+    quantised linear of a w8a8 step, each through ``local_map``.  Returns
+    the mesh runs' launches and the steps' walls."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.serve import cache_shardings
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import (distribute, param_shardings,
+                                                rules_context)
+    from repro_torch.training.step import make_decode_step
+
+    cfg = ARCH_CONFIGS[QWEN]
+    params, axes = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(13)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, QWEN_T)), device=dev)
+    total = {}
+    with torch.no_grad():
+        want = T.forward_prefill(params, {"tokens": tokens}, cfg)
+        with rules_context(mesh, cfg.sharding_overrides):
+            sp = distribute(params, param_shardings(axes, mesh,
+                                                   cfg.sharding_overrides, params))
+            got = full(T.forward_prefill(sp, mesh_batch({"tokens": tokens}, mesh,
+                                                        cfg), cfg))
+        check(torch.equal(got, want), "13a: the mesh prefill's logits differ")
+        log(f"phase 13a: {QWEN} forward_prefill B=1 T={QWEN_T} bf16 on the 1 x 1 "
+            f"mesh: logits equal the unsharded prefill's bit for bit")
+        del sp, got, want
+        walls = {}
+        for mode, quant in (("float", None),
+                            ("w8a8", QuantConfig("w8a8", quantize_kv=True))):
+            c = cfg if quant is None else cfg.replace(quant=quant)
+            p, a = (params, axes) if quant is None else \
+                T.quantize_model_params(params, axes, c)
+            cache = filled_cache(T, c, dev, 13)
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_B, 1)),
+                                   device=dev)
+            runs = {}
+            for where in ("unsharded", "mesh"):
+                ctx = (rules_context(mesh, c.sharding_overrides) if where == "mesh"
+                       else contextlib.nullcontext())
+                with ctx:
+                    if where == "mesh":
+                        pp = distribute(p, param_shardings(a, mesh,
+                                                          c.sharding_overrides, p))
+                        ch = distribute(cache, cache_shardings(c, SERVE_B, SERVE_S,
+                                                              mesh))
+                    else:
+                        pp, ch = p, cache
+                    tk, out, ms = toks, [], []
+                    for i in range(SERVE_STEPS):
+                        batch = {"tokens": tk, "cache_pos": SERVE_S - SERVE_STEPS + i}
+                        if where == "mesh":
+                            batch = mesh_batch(batch, mesh, c)
+                        calls = []
+                        real = L._local_int8_matmul
+
+                        def counting(*args):
+                            calls.append(1)
+                            return real(*args)
+                        L._local_int8_matmul = counting
+                        reset_counts(mods)
+                        try:
+                            with QuantLinearCount(layer_mods) as n_lin:
+                                torch.cuda.synchronize()
+                                t0 = time.perf_counter()
+                                logits, ch = T.forward_decode(pp, ch, batch, c)
+                                torch.cuda.synchronize()
+                                ms.append((time.perf_counter() - t0) * 1e3)
+                        finally:
+                            L._local_int8_matmul = real
+                        launches = read_counts(mods)
+                        lg = full(logits) if where == "mesh" else logits
+                        tk = lg[:, -1].argmax(-1, keepdim=True)
+                        out.append((lg, tk))
+                        k4 = n_lin.n if quant is not None else 0
+                        check(launches == {**{k: 0 for k in launches}, "int32": k4},
+                              f"13a {mode} {where} step {i}: launches {launches}, "
+                              f"{n_lin.n} quantised linears")
+                        check(len(calls) == (k4 if where == "mesh" else 0),
+                              f"13a {mode} {where}: {len(calls)} int8 products "
+                              f"through local_map, {k4} quantised linears")
+                        if where == "mesh":
+                            for k, v in launches.items():
+                                total[k] = total.get(k, 0) + v
+                    if where == "mesh":
+                        tok_step, _ = make_decode_step(c)(pp, ch, batch)
+                        check(torch.equal(full(tok_step)[:, None], tk),
+                              f"13a {mode}: make_decode_step's tokens differ")
+                    runs[where] = (out, ms, k4)
+                    del pp, ch
+            for i, ((lu, tu), (lm_, tm)) in enumerate(zip(runs["unsharded"][0],
+                                                          runs["mesh"][0])):
+                check(torch.equal(lu, lm_) and torch.equal(tu, tm),
+                      f"13a {mode} decode step {i}: the mesh differs from the "
+                      f"unsharded step")
+            walls[mode] = {w: r[1] for w, r in runs.items()}
+            log(f"phase 13a: {QWEN} {mode} decode, batch {SERVE_B}, a {SERVE_S}-deep "
+                f"cache, {SERVE_STEPS} steps: logits and tokens equal the unsharded "
+                f"steps' bit for bit; K4 {runs['mesh'][2]} launches a step through "
+                f"local_map; step walls (ms) unsharded {walls[mode]['unsharded']}, "
+                f"mesh {walls[mode]['mesh']}; the mesh's mean over steps 2-"
+                f"{SERVE_STEPS} is {np.mean(walls[mode]['mesh'][1:]) / np.mean(walls[mode]['unsharded'][1:]):.4f}"
+                f" x the unsharded's on {card}")
+            del p, a, cache, runs
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return total, walls
+
+
+def phase13_rgemma(mesh, mods, ref6, dev, card):
+    """13b: RecurrentGemma-2B at full width on the 1 x 1 mesh: the prefill
+    at B=2, T=4096 with K7 once per rec layer through ``local_map``, then
+    LM_DECODE steps of phase 6's bf16 prompt decode; each result equal to
+    phase 6's unsharded one bit for bit.  Returns the launches."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.launch.serve import cache_shardings
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import (distribute, param_shardings,
+                                                rules_context)
+
+    cfg = ARCH_CONFIGS["recurrentgemma-2b"]
+    n_rec = sum(k == "rec" for k in cfg.layer_kinds())
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PREFILL)), device=dev)   # phase 2's
+    prompt = ref6["prompt"]
+    check(torch.equal(tokens[:, :prompt.shape[1]], prompt), "13b: another prompt")
+    params, axes = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad(), rules_context(mesh, cfg.sharding_overrides):
+        sp = distribute(params, param_shardings(axes, mesh, cfg.sharding_overrides,
+                                               params))
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        logits = full(T.forward_prefill(sp, mesh_batch({"tokens": tokens}, mesh,
+                                                       cfg), cfg))
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(mods)
+        check(launches == {**{k: 0 for k in launches}, "rglru_seq": n_rec},
+              f"13b: the mesh prefill launched {launches}, not K7 {n_rec} times")
+        check(torch.equal(logits, ref6["prefill"]),
+              "13b: the mesh prefill differs from phase 6's")
+        b, t_len = prompt.shape
+        cache = distribute(T.init_cache(cfg, b, t_len, device=dev),
+                          cache_shardings(cfg, b, t_len, mesh))
+        reset_counts(mods)
+        for t, want in enumerate(ref6["decode"]):
+            lg, cache = T.forward_decode(sp, cache, mesh_batch(
+                {"tokens": prompt[:, t:t + 1], "cache_pos": t}, mesh, cfg), cfg)
+            check(torch.equal(full(lg), want),
+                  f"13b: mesh decode step {t} differs from phase 6's")
+        dec = read_counts(mods)
+        check(not any(dec.values()), f"13b: decode launched {dec}")
+    log(f"phase 13b: RecurrentGemma-2B forward_prefill B={LM_BATCH} T={LM_PREFILL} "
+        f"on the 1 x 1 mesh ({pre_ms:.3f} ms wall, its first): K7 through "
+        f"local_map {launches['rglru_seq']} times, logits equal phase 6's bit for "
+        f"bit; {len(ref6['decode'])} decode steps of phase 6's prompt equal its "
+        f"bf16 decode's bit for bit, on {card}")
+    del params, sp, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def card_step_reads(step, args, arg_tensors, dev):
+    """FLOPs (``FlopCounterMode``) and peak device bytes of ``step(*args)``
+    on the card with its arguments resident: ``max_memory_allocated`` over
+    the step, less what else the card held before it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.no_grad():
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        arg_bytes = sum(t.untyped_storage().nbytes() for t in
+                        {id(t): t for t in arg_tensors}.values())
+        other = torch.cuda.memory_allocated(dev) - arg_bytes
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - other
+    del out
+    return float(fc.get_total_flops()), peak / 2**30
+
+
+def phase13_dryrun(dev, card):
+    """13c: the dry run's qwen1.5-0.5B float prefill (B=1, T=2048) and float
+    decode (batch SERVE_B, a SERVE_S-deep cache) on a one-rank fake world
+    (a child process), against the same steps on the card: FLOPs within
+    DRY_FLOPS_RTOL of ``FlopCounterMode`` over the card's run and the peak
+    within DRY_PEAK_RTOL of the card's."""
+    from repro_torch.configs import ARCH_CONFIGS
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import cast_tree
+    from repro_torch.training.step import make_decode_step, make_prefill_step
+    from repro_torch.training.tree import tree_leaves
+
+    cells = [(QWEN, ["prefill_2k", "prefill", QWEN_T, 1]),
+             (QWEN, ["decode_2k", "decode", SERVE_S, SERVE_B])]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", DRYRUN_CHILD, json.dumps(cells)],
+                         env=child_env(), cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"13c: the dry run failed:\n{res.stderr[-3000:]}")
+    recs = json.loads(res.stdout.strip().splitlines()[-1])
+    child_s = time.perf_counter() - t0
+
+    cfg = ARCH_CONFIGS[QWEN]
+    master, _ = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = cast_tree(master, torch.bfloat16)     # the dry run's serve cast
+    del master
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(14)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, QWEN_T)),
+                             dtype=torch.int32, device=dev)
+    cache = T.init_cache(cfg, SERVE_B, SERVE_S, device=dev)
+    dec_tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_B, 1)),
+                              dtype=torch.int32, device=dev)
+    reads = {
+        "prefill_2k": card_step_reads(
+            make_prefill_step(cfg), (params, {"tokens": tokens}),
+            tree_leaves(params) + [tokens], dev),
+        "decode_2k": card_step_reads(
+            make_decode_step(cfg), (params, cache, {"tokens": dec_tok,
+                                                    "cache_pos": SERVE_S - 1}),
+            tree_leaves(params) + list(cache.values()) + [dec_tok], dev)}
+    del params, cache
+    torch.cuda.empty_cache()
+    for rec in recs:
+        check(rec["status"] == "ok" and rec["modelled"], f"13c: {rec}")
+        flops, peak = reads[rec["shape"]]
+        mem = rec["memory"]
+        f_err = abs(rec["flops_global"] - flops) / flops
+        p_err = abs(mem["peak_undonated_gb"] - peak) / peak
+        log(f"phase 13c: {QWEN} {rec['shape']} (modelled, {rec['device_model']}, "
+            f"1 x 1 fake world): flops_global {rec['flops_global']:.6e} against "
+            f"FlopCounterMode on the card {flops:.6e} ({f_err:.3e}); peak "
+            f"{mem['peak_undonated_gb']:.6f} GiB undonated (the record's peak_gb "
+            f"{mem['peak_gb']:.6f} after its donated alias {mem['alias_gb']:.6f}) "
+            f"against the card's {peak:.6f} GiB ({p_err:.4f}); trace_s "
+            f"{rec['trace_s']} on {card}")
+        check(f_err <= DRY_FLOPS_RTOL, f"13c {rec['shape']}: FLOPs {f_err:.3e} off")
+        check(p_err <= DRY_PEAK_RTOL, f"13c {rec['shape']}: peak {p_err:.4f} off")
+    log(f"phase 13c: the dry run's child process took {child_s:.1f} s")
+    return recs
+
+
+def finish_sweep(procs, card):
+    """13d: wait for the production cells; each exits 0 with its status as
+    the reference's rule says, and ``analysis.report`` renders them."""
+    from repro_torch.analysis.report import dryrun_table, roofline_table
+    recs = []
+    for (cell, proc, out), want in zip(procs, SWEEP_STATUS):
+        proc.wait(timeout=900)
+        rec = json.loads(out.read_text())[-1] if out.exists() else {}
+        check(proc.returncode == 0, f"13d {' '.join(cell)} exited "
+              f"{proc.returncode}:\n{out.with_suffix('.log').read_text()[-2000:]}"
+              f"\n{rec.get('traceback', '')}")
+        check(rec["status"] == want and rec.get("modelled") is True,
+              f"13d {' '.join(cell)}: {rec.get('status')} ({rec.get('error', '')})")
+        recs.append(rec)
+        log(f"phase 13d: dryrun {' '.join(cell)}: {rec['status']} on "
+            f"{rec['mesh']}, trace_s {rec.get('trace_s', '-')}" + (
+                f", flops/device {rec['flops_per_device']:.6e}, peak "
+                f"{rec['memory']['peak_gb']:.6f} GiB, collectives "
+                f"{rec['collectives']['total']:.6e} B, bound "
+                f"{rec['roofline']['bound']} (modelled, {rec['device_model']})"
+                if rec["status"] == "ok" else f" ({rec['reason']})"))
+    for mesh in ("16x16", "2x16x16"):
+        log(dryrun_table(recs, mesh))
+    log(roofline_table(recs))
+    return recs
+
+
+def phase13_quickstart(mods, card):
+    """13e: ``examples/torch/quickstart.py`` on the card: its run, with
+    K1's launches counted."""
+    import runpy
+    reset_counts(mods)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(str(ROOT / "examples" / "torch" / "quickstart.py"),
+                       run_name="__main__")
+    launches = read_counts(mods)
+    text = buf.getvalue()
+    check(launches["multilayer"] > 0, f"13e: the quickstart launched {launches}")
+    check("bit-identical = False" not in text and "bit-identical = True" in text,
+          f"13e: the quickstart's engines differ:\n{text[-2000:]}")
+    for line in text.strip().splitlines():
+        log("  " + line)
+    log(f"phase 13e: examples/torch/quickstart.py on {card}: launches {launches}")
+    return launches
+
+
+def phase13(mesh, mods, layer_mods, ref6, procs, dev, card):
+    """Phase 13 on phase 12's mesh; 13d's CPU processes (``procs``, started
+    by :func:`start_sweep`) have run since phase 11.  Returns the launches
+    of 13a, 13b and 13e."""
+    t0 = time.perf_counter()
+    total = {}
+    for name, part in (
+            ("13a", lambda: phase13_qwen(mesh, mods, layer_mods, dev, card)[0]),
+            ("13b", lambda: phase13_rgemma(mesh, mods, ref6, dev, card)),
+            ("13c", lambda: phase13_dryrun(dev, card) and {}),
+            ("13e", lambda: phase13_quickstart(mods, card)),
+            ("13d", lambda: finish_sweep(procs, card) and {})):
+        t1 = time.perf_counter()
+        for k, v in part().items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+        log(f"phase {name}: done in {time.perf_counter() - t1:.1f} s")
+    log(f"phase 13: done in {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
+def stop(procs):
+    for _, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def kernel_record(sp, launches, card):
     """One kernel's entry of the ``{"kernels": [...]}`` record from its spec
     (``kern``, ``plain`` and optional ``library``/``earlier`` callables, its
@@ -2804,7 +3255,8 @@ def main() -> int:
     # -- phase 6: RecurrentGemma-2B prefill, serve, prefill vs decode --------
     t0 = time.perf_counter()
     with torch.inference_mode():
-        lm_launches = phase_lm(lm, serve, mods, lm_params, lm_cfg, lm_tokens, dev)
+        lm_launches, phase6_ref = phase_lm(lm, serve, mods, lm_params, lm_cfg,
+                                           lm_tokens, dev)
     log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 7: QAT training on the card -----------------------------------
@@ -3129,8 +3581,8 @@ def main() -> int:
     torch.cuda.set_device(0)
     lm_mesh.ensure_process_group("cuda")
     try:
-        kernels = phases_11_12(lm_mesh, lm_train, kernels, rg, mods, session,
-                               layer_mods, qm, dev, card)
+        kernels = phases_11_to_13(lm_mesh, lm_train, kernels, rg, mods, session,
+                                  layer_mods, qm, phase6_ref, dev, card)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -3142,10 +3594,21 @@ def main() -> int:
     return 0
 
 
-def phases_11_12(lm_mesh, lm_train, kernels, rg, mods, session, layer_mods, qm,
-                 dev, card):
-    """Phases 11 and 12 in the host mesh's process group; returns the
-    kernel records with their launches counted."""
+def phases_11_to_13(lm_mesh, lm_train, kernels, rg, mods, session, layer_mods,
+                    qm, ref6, dev, card):
+    """Phases 11 to 13 in the host mesh's process group, with 13d's CPU
+    processes running from phase 11's start; returns the kernel records
+    with their launches counted."""
+    procs = start_sweep()
+    try:
+        return phases_11_to_13_run(lm_mesh, lm_train, kernels, rg, mods, session,
+                                   layer_mods, qm, ref6, procs, dev, card)
+    finally:
+        stop(procs)
+
+
+def phases_11_to_13_run(lm_mesh, lm_train, kernels, rg, mods, session,
+                        layer_mods, qm, ref6, procs, dev, card):
     t0 = time.perf_counter()
     lm11_launches = {}
     for name, part in (
@@ -3184,9 +3647,13 @@ def phases_11_12(lm_mesh, lm_train, kernels, rg, mods, session, layer_mods, qm,
         log(f"phase {name}: done in {time.perf_counter() - t1:.1f} s")
     log(f"phase 12: done in {time.perf_counter() - t0:.1f} s; launches "
         f"{lm12_launches}")
+
+    # -- phase 13: prefill and decode on the mesh, the dry run, the examples --
+    lm13_launches = phase13(mesh, mods, layer_mods, ref6, procs, dev, card)
     for k in kernels:
         k["launches"] += (lm11_launches.get(k["counter"], 0)
-                          + lm12_launches.get(k["counter"], 0))
+                          + lm12_launches.get(k["counter"], 0)
+                          + lm13_launches.get(k["counter"], 0))
     kernels.append(kernel_record(bwd_spec, lm11_launches["rglru_seq_bwd"]
                                  + lm12_launches["rglru_seq_bwd"], card))
     return kernels

@@ -2,10 +2,11 @@
 ``repro/analysis/report.py`` (a copy: the payloads are plain JSON, and the
 tables are byte for byte the reference's).
 
-Dry-run sweeps (the reference's ``launch/dryrun.py`` output, plus deltas
-vs a baseline):
+Dry-run sweeps (``launch/dryrun.py``'s records, whose ``trace_s`` takes
+the column of the reference's ``compile_s``, or the reference's own;
+plus deltas vs a baseline):
 
-  PYTHONPATH=src python -m repro_torch.analysis.report results/dryrun.json \
+  PYTHONPATH=src python -m repro_torch.analysis.report results/dryrun_torch.json \
       [--baseline results/dryrun_baseline.json]
 
 Design-space sweeps (the payload of ``repro_torch.explore.sweep`` saved as
@@ -49,7 +50,8 @@ def dryrun_table(rs: List[Dict], mesh: str) -> str:
                        f"({r.get('reason', '')[:60]}...) | | | | | |")
             continue
         out.append(
-            f"| {r['arch']} | {r['shape']} | ok | {r.get('compile_s', '')} | "
+            f"| {r['arch']} | {r['shape']} | ok | "
+            f"{r.get('trace_s', r.get('compile_s', ''))} | "
             f"{r.get('params', 0) / 1e9:.2f}B | "
             f"{r['memory'].get('peak_gb', 0):.2f} | "
             f"{r['collectives'].get('total', 0) / 2**20:.1f} | "

@@ -9,7 +9,7 @@ import dataclasses
 
 from repro_torch.configs.base import (AttnConfig, ModelConfig, MoEConfig,  # noqa: F401
                                       RecurrentConfig, RWKVConfig, ShapeSpec,
-                                      SHAPES)
+                                      SHAPES, input_specs, shape_applicable)
 from repro_torch.configs.codeqwen15_7b import CONFIG as _codeqwen
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma27
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2

@@ -3,15 +3,17 @@
 
 One ``ModelConfig`` describes any of the reference's architectures; one
 ``ShapeSpec`` describes one input-shape cell; ``batch_axes`` names a
-batch's logical axes for the sharding rules.  The reference's
-``input_specs`` and ``shape_applicable`` (the dry run's inputs) are not
-ported yet.
+batch's logical axes for the sharding rules; ``shape_applicable`` says
+whether a cell runs and ``input_specs`` names a cell's inputs (shape,
+dtype, logical axes), which ``launch/dryrun.py`` lays out on a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.core.quant import NO_QUANT, QuantConfig
 
@@ -163,7 +165,39 @@ SHAPES: Dict[str, ShapeSpec] = {
 }
 
 
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a cell runs: a full-attention arch skips the 500k-token
+    decode, whose KV cache grows without bound."""
+    if shape.name == "long_500k" and not cfg.subquadratic():
+        return False, ("skip: full-attention arch at 500k context is "
+                       "quadratic / unbounded-KV (DESIGN.md §4)")
+    return True, ""
+
+
 def batch_axes():
     """Logical axes of a (batch, seq) input: the batch splits by the
     ``"batch"`` rule, the sequence stays whole."""
     return ("batch", None)  # (batch, seq)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Tuple]:
+    """{name: (shape, dtype, logical_axes)} for every model input of the
+    cell: token ids (or, for an arch without an embedding input, the
+    frontend's bf16 frames), training labels, M-RoPE's (3, B, S) position
+    ids, and for decode one new token and the 0-dim ``cache_pos``."""
+    b, s = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    specs = {}
+    if shape.kind == "decode":  # one new token against a seq_len-deep cache
+        s = 1
+    if cfg.embed_inputs:
+        specs["tokens"] = ((b, s), torch.int32, ("batch", None))
+    else:  # vlm/audio: the frontend stub supplies embeddings
+        specs["inputs_embeds"] = ((b, s, d), torch.bfloat16, ("batch", None, None))
+    if shape.kind == "train":
+        specs["labels"] = ((b, s), torch.int32, ("batch", None))
+    if shape.kind == "decode":
+        specs["cache_pos"] = ((), torch.int32, ())
+    if cfg.attn and cfg.attn.mrope_sections:
+        specs["position_ids"] = ((3, b, s), torch.int32, (None, "batch", None))
+    return specs

@@ -190,6 +190,12 @@ def weight_bytes(model: QLSTMConfig, acc: AcceleratorConfig) -> int:
     return cells.get(model.cell).weight_bytes(model, acc)
 
 
+def lstm_weight_bytes(model: QLSTMConfig, acc: AcceleratorConfig) -> int:
+    """Alias of :func:`weight_bytes` under its earlier name; correct for
+    every cell, not just the LSTM."""
+    return weight_bytes(model, acc)
+
+
 def resolve_weight_memory(model: QLSTMConfig, acc: AcceleratorConfig) -> str:
     """AUTO spill decision: shared memory while the weights fit the
     per-block budget, else device memory."""

@@ -41,6 +41,18 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def cache_shardings(cfg, batch: int, seq_len: int, mesh, overrides=None):
+    """{key: ParamSharding} of ``T.cache_spec``'s entries on ``mesh``: each
+    entry's logical axes through the config's rules (``overrides`` in
+    their place when given), a dim the mesh cannot divide left whole."""
+    from repro_torch.sharding.partition import param_shardings
+    spec = T.cache_spec(cfg, batch, seq_len)
+    return param_shardings(
+        {k: ax for k, (_, _, ax) in spec.items()}, mesh,
+        cfg.sharding_overrides if overrides is None else overrides,
+        {k: torch.empty(shp, device="meta") for k, (shp, _, _) in spec.items()})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")

@@ -10,6 +10,11 @@ prefill never materialises a (T, S) score matrix.  It is not a kernel:
 the reference's model path computes it in ``jnp`` too, and its flash
 kernel (``kernels/flash_attention.py``) is not on that path.
 
+Under a mesh (``sharding.partition.rules_context``) attention, a decode
+step's cache write and attention, and w8a8's int8 product run on each
+rank's local shards through ``local_map``; ``linear`` lays out its
+operands before the product.
+
 ``linear`` takes float weights or the ``{"q", "s"}`` int8 serve weights
 of ``transformer.quantize_model_params``: w8 dequantises the weight into
 the matmul; w8a8 quantises the activation per tensor and runs the int8 x
@@ -28,7 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
@@ -58,7 +63,12 @@ def linear(x: Tensor, w, quant: QuantConfig, mode: str = "train") -> Tensor:
     """x @ w where w is a float tensor or a {"q", "s"} int8 dict (serve).
     Contraction is over x's last dim and w's first; w's extra trailing
     dims (e.g. (d, H, hd)) are flattened and restored.  The casts and
-    products follow the reference's order."""
+    products follow the reference's order.  Under a mesh the operands are
+    laid out by :func:`_place_operands` before the product; w8a8's int8
+    product runs on each rank's local operands through ``local_map``
+    (K4 reads raw pointers), its row-parallel partial int32 sums
+    all-reduced after, so the accumulators equal the unsharded ones bit
+    for bit, and its activation scale is the global ``amax``."""
     if isinstance(w, dict):  # quantised serve weights
         wq, ws = w["q"], w["s"]
         shp = wq.shape
@@ -69,20 +79,41 @@ def linear(x: Tensor, w, quant: QuantConfig, mode: str = "train") -> Tensor:
             if quant.p2_scale:
                 s_x = _p2_round_scale(s_x)
             xq = torch.clamp(torch.floor(x / s_x + 0.5), -128, 127).to(torch.int8)
-            acc = int8_matmul(xq, w2)
+            acc = (_local_int8_matmul(xq, w2) if isinstance(xq, DTensor)
+                   else int8_matmul(xq, w2))
             y = (acc.float() * s_x * ws.reshape(1, -1)).to(x.dtype)
         else:  # w8: dequantise weights into the matmul
-            y = x @ (w2.to(x.dtype) * ws.reshape(1, -1).to(x.dtype))
+            y = _product(x, w2.to(x.dtype) * ws.reshape(1, -1).to(x.dtype),
+                         lambda a, b: a @ b)
         return y.reshape(x.shape[:-1] + shp[1:])
     shp = w.shape
     w2 = w.reshape(shp[0], -1).to(x.dtype)
-    out_pl = None
-    if isinstance(x, DTensor):
-        x, w2, out_pl = _place_operands(x, w2)
-    y = fq_matmul(x, w2, quant) if mode == "train" and quant.enabled else x @ w2
-    if out_pl is not None:
-        y = place(y, out_pl)
+    y = _product(x, w2, (lambda a, b: fq_matmul(a, b, quant))
+                 if mode == "train" and quant.enabled else (lambda a, b: a @ b))
     return y.reshape(x.shape[:-1] + shp[1:])
+
+
+def _product(x: Tensor, w2: Tensor, mm) -> Tensor:
+    """``mm(x, w2)``; under a mesh with the operands laid out first."""
+    if not isinstance(x, DTensor):
+        return mm(x, w2)
+    x, w2, out_pl = _place_operands(x, w2)
+    return place(mm(x, w2), out_pl)
+
+
+def _local_int8_matmul(xq: DTensor, w2: DTensor) -> DTensor:
+    """``int8_matmul`` under a mesh: the operands laid out as
+    :func:`_place_operands` lays out a float product, the int32 product
+    of each rank's local blocks (K4 on the card), and where the weight is
+    split by contraction row, each rank's partial sums all-reduced
+    (int32 addition wraps alike in any order)."""
+    xq, w2, out_pl = _place_operands(xq, w2)
+    local_pl = tuple(Partial() if wp == Shard(0) else p
+                     for p, wp in zip(out_pl, w2.placements))
+    acc = local_map(int8_matmul, out_placements=(local_pl,),
+                    in_placements=(tuple(xq.placements), tuple(w2.placements)),
+                    device_mesh=xq.device_mesh)(xq, w2)
+    return place(acc, out_pl)
 
 
 def _place_operands(x: DTensor, w2: DTensor):
@@ -355,28 +386,17 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
     softcap = a.attn_softcap if a else None
 
     if mode == "decode":
-        st = dict(cache)
-        slot = cache_pos % ring_window if ring_window else cache_pos
-        idx = torch.tensor([slot], device=x.device)
-        kscale = vscale = None
-        if st["k"].dtype == torch.int8:
-            # C1 on the cache: per-(token, head) symmetric int8
-            kq, ks_new = _q8(k.float())
-            vq, vs_new = _q8(v.float())
-            st["k"] = st["k"].index_copy(1, idx, kq)
-            st["v"] = st["v"].index_copy(1, idx, vq)
-            st["k_scale"] = kscale = st["k_scale"].index_copy(1, idx, ks_new)
-            st["v_scale"] = vscale = st["v_scale"].index_copy(1, idx, vs_new)
-        else:
-            st["k"] = st["k"].index_copy(1, idx, k.to(st["k"].dtype))
-            st["v"] = st["v"].index_copy(1, idx, v.to(st["v"].dtype))
-        s_cache = st["k"].shape[1]
-        out = flash_attention(
-            q, st["k"], st["v"], causal=False,
+        s_cache = cache["k"].shape[1]
+        attend = functools.partial(
+            flash_attention, causal=False,
             window=None if ring_window else window, softcap=softcap,
             hard_softcap=cfg.hard_acts, scale=scale, q_offset=cache_pos,
             kv_valid_len=min(cache_pos + 1, s_cache), q_chunk=1,
-            kv_chunk=min(4096, s_cache), k_scale=kscale, v_scale=vscale)
+            kv_chunk=min(4096, s_cache))
+        slot = cache_pos % ring_window if ring_window else cache_pos
+        step = functools.partial(_decode_write_attend, attend, slot)
+        out, st = (_local_decode(step, q, k, v, cache)
+                   if isinstance(q, DTensor) else step(q, k, v, cache))
         y = linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
         return y, st
 
@@ -386,6 +406,54 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
     out = (_local_attention(attend, q, k, v) if isinstance(q, DTensor)
            else attend(q, k, v))
     return linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
+
+
+def _decode_write_attend(attend, slot: int, q: Tensor, k: Tensor, v: Tensor,
+                         cache: Dict[str, Tensor]):
+    """One decode step's attention: the new token's k and v written at
+    ``slot`` of a copy of the cache (int8 codes and their scales for an
+    int8 cache), then ``attend(q, k_cache, v_cache)``.  Returns (out, the
+    new cache)."""
+    st = dict(cache)
+    idx = torch.tensor([slot], device=q.device)
+    kscale = vscale = None
+    if st["k"].dtype == torch.int8:
+        # C1 on the cache: per-(token, head) symmetric int8
+        kq, ks_new = _q8(k.float())
+        vq, vs_new = _q8(v.float())
+        st["k"] = st["k"].index_copy(1, idx, kq)
+        st["v"] = st["v"].index_copy(1, idx, vq)
+        st["k_scale"] = kscale = st["k_scale"].index_copy(1, idx, ks_new)
+        st["v_scale"] = vscale = st["v_scale"].index_copy(1, idx, vs_new)
+    else:
+        st["k"] = st["k"].index_copy(1, idx, k.to(st["k"].dtype))
+        st["v"] = st["v"].index_copy(1, idx, v.to(st["v"].dtype))
+    return attend(q, st["k"], st["v"], k_scale=kscale, v_scale=vscale), st
+
+
+def _local_decode(step, q: DTensor, k: DTensor, v: DTensor,
+                  cache: Dict[str, DTensor]):
+    """``step(q, k, v, cache)`` under a mesh, on each rank's own batch rows
+    and kv-head groups through ``local_map``, per mesh axis as the cache
+    is laid out: a cache split by batch or by kv heads keeps its split
+    (q's heads follow k's in whole GQA groups); a cache split along its
+    sequence (``kv_seq``) is gathered whole before the step — an
+    all-gather of the layer's cache that the collective counters see —
+    and the new cache is split again after it (a local slice).  Returns
+    (out, the new cache in the cache's placements)."""
+    keys = list(cache)
+    held = tuple(cache["k"].placements)
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in held)
+
+    def local(q, k, v, *entries):
+        out, st = step(q, k, v, dict(zip(keys, entries)))
+        return (out, *(st[n] for n in keys))
+    run = local_map(local, out_placements=(pl,) * (1 + len(keys)),
+                    in_placements=(pl,) * (3 + len(keys)),
+                    device_mesh=q.device_mesh)
+    out, *new = run(*(place(t, pl) for t in (q, k, v)),
+                    *(place(cache[n], pl) for n in keys))
+    return out, {n: place(t, held) for n, t in zip(keys, new)}
 
 
 def _local_attention(attend, q: DTensor, k: DTensor, v: DTensor) -> DTensor:

@@ -30,6 +30,8 @@ activation against an f32 parameter computes in f32).
 
 from __future__ import annotations
 
+import functools
+
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -53,9 +55,23 @@ def _sigmoid(x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def _mm(a: Tensor, b: Tensor) -> Tensor:
-    """a @ b in the promoted dtype of the two, as ``jnp``'s ``@`` does."""
+    """a @ b in the promoted dtype of the two, as ``jnp``'s ``@`` does.
+    Under a mesh (the ddlerp's and the decay's LoRA products) it runs on
+    each rank's own batch rows against the whole weight through
+    ``local_map``: DTensor's layouts for these products and their
+    gradients split the flattened rows over both mesh axes, which its
+    sharding propagation cannot take on fake tensors."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return a.to(dt) @ b.to(dt)
+    a, b = a.to(dt), b.to(dt)
+    if not isinstance(a, DTensor):
+        return a @ b
+    pl = tuple(p if p == Shard(0) else Replicate() for p in a.placements)
+    whole = (Replicate(),) * len(pl)
+    # the weight's local gradient sums only this rank's rows
+    b_grad = tuple(Partial() if p == Shard(0) else p for p in pl)
+    return local_map(torch.matmul, out_placements=(pl,),
+                     in_placements=(pl, whole), in_grad_placements=(pl, b_grad),
+                     device_mesh=a.device_mesh)(place(a, pl), place(b, whole))
 
 
 # ---------------------------------------------------------------------------
@@ -189,13 +205,15 @@ def wkv_chunked(r, k, v, w, u, state: Optional[Tensor] = None,
     return y.reshape(b, nc * c, h, n)[:, :t], state
 
 
-def _wkv_local(r, k, v, w, u, chunk: int):
-    """``wkv_chunked`` from a zero state under a mesh, on each rank's own
-    batch rows and heads through ``local_map``: every (row, head) runs
-    its own recurrence, so the split is exact; time stays whole.  Its
-    chunked einsums over a split batch and heads have no working DTensor
-    layout of their own, and one local call spares the host the dispatch
-    of each of them."""
+def _wkv_local(wkv, r, k, v, w, u, state: Optional[Tensor] = None):
+    """``wkv(r, k, v, w, u, state)`` (``wkv_chunked`` or
+    ``wkv_sequential``) under a mesh, on each rank's own batch rows and
+    heads through ``local_map``: every (row, head) runs its own
+    recurrence, so the split is exact; time stays whole.  Its einsums over
+    a split batch and heads have no working DTensor layout of their own,
+    and one local call spares the host the dispatch of each of them.  A
+    decode step's ``state`` (B, H, N, N) is split like the rows and
+    heads."""
     pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
                for p in r.placements)
     u_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in pl)
@@ -204,22 +222,36 @@ def _wkv_local(r, k, v, w, u, chunk: int):
     s_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
     args = [place(t, want) for t, want in zip((r, k, v, w, u),
                                              (pl,) * 4 + (u_pl,))]
-    return local_map(lambda r, k, v, w, u: wkv_chunked(r, k, v, w, u, None,
-                                                       chunk),
-                     out_placements=(pl, s_pl),
-                     in_placements=(pl,) * 4 + (u_pl,),
-                     in_grad_placements=(pl,) * 4 + (u_grad,),
-                     device_mesh=r.device_mesh)(*args)
+    if state is None:
+        return local_map(lambda r, k, v, w, u: wkv(r, k, v, w, u, None),
+                         out_placements=(pl, s_pl),
+                         in_placements=(pl,) * 4 + (u_pl,),
+                         in_grad_placements=(pl,) * 4 + (u_grad,),
+                         device_mesh=r.device_mesh)(*args)
+    return local_map(wkv, out_placements=(pl, s_pl),
+                     in_placements=(pl,) * 4 + (u_pl, s_pl),
+                     device_mesh=r.device_mesh)(*args, place(state, s_pl))
 
 
 # ---------------------------------------------------------------------------
 # block
 # ---------------------------------------------------------------------------
 
+def _pad_shift(x: Tensor) -> Tensor:
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
 def _shift(x: Tensor, last: Optional[Tensor] = None) -> Tensor:
-    """Token shift: x_{t-1} (zeros / ``last`` state at t=0)."""
+    """Token shift: x_{t-1} (zeros / ``last`` state at t=0).  Under a mesh
+    the padded shift runs on each rank's own rows and channels through
+    ``local_map`` (time stays whole): torch 2.11's DTensor fails to
+    redistribute for the padded tensor on a split mesh."""
     if last is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+        if not isinstance(x, DTensor):
+            return _pad_shift(x)
+        pl = tuple(Replicate() if p == Shard(1) else p for p in x.placements)
+        return local_map(_pad_shift, out_placements=(pl,), in_placements=(pl,),
+                         device_mesh=x.device_mesh)(place(x, pl))
     if x.shape[1] > 1:
         return torch.cat([last[:, None, :], x[:, :-1]], 1)
     return last[:, None, :]
@@ -253,9 +285,13 @@ def time_mix_apply(p, x: Tensor, cfg: ModelConfig, mode: str = "train",
 
     wkv_state = state["wkv"] if state else None
     if mode == "decode" or t == 1:
-        y, s_new = wkv_sequential(r, k, v, w, u, wkv_state)
+        y, s_new = (_wkv_local(wkv_sequential, r, k, v, w, u, wkv_state)
+                    if isinstance(r, DTensor)
+                    else wkv_sequential(r, k, v, w, u, wkv_state))
     elif isinstance(r, DTensor):
-        y, s_new = _wkv_local(r, k, v, w, u, cfg.rwkv.chunk)
+        y, s_new = _wkv_local(functools.partial(wkv_chunked,
+                                                chunk=cfg.rwkv.chunk),
+                              r, k, v, w, u)
     else:
         y, s_new = wkv_chunked(r, k, v, w, u, wkv_state, cfg.rwkv.chunk)
     y = y.reshape(b, t, d).to(x.dtype)

@@ -10,6 +10,11 @@ Composition rules (from ModelConfig), as in the reference:
     into full periods (``groups[j]`` holds pattern position j's leaves
     with a leading axis over the periods) plus a homogeneous ``tail``.
 
+Under a mesh every entry point takes ``DTensor`` params, batches and
+caches (``launch.serve.cache_shardings``); the embedding lookup is
+vocab-parallel and the loss's per-token terms run on local rows
+(``local_map``).
+
 The params keep the reference's stacked layout, so carrying weights
 across is a plain map of leaves; a Python loop over layers takes the
 place of the reference's ``scan``.  With ``cfg.remat == "full"`` a
@@ -33,6 +38,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -42,7 +49,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models.modules import param, tree_index, tree_leaves, unbox
-from repro_torch.sharding.partition import PRODUCTION_TP, constrain
+from repro_torch.sharding.partition import PRODUCTION_TP, constrain, place
 
 Tensor = torch.Tensor
 
@@ -188,6 +195,43 @@ def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
 # embedding / head
 # ---------------------------------------------------------------------------
 
+def _lookup(table: Tensor, tokens: Tensor, dtype: torch.dtype) -> Tensor:
+    """``table[tokens]`` cast to ``dtype``.  Under a mesh it is the
+    vocab-parallel lookup: the table keeps its vocab split and is gathered
+    along its other dim (FSDP's gather), each rank takes the rows of its
+    own vocab slice for its own token rows (zeros for the others), and the
+    rows are summed over the vocab split — exact, as one rank holds each
+    row.  Its backward scatters into each rank's own slice; DTensor's
+    index backward into a split table fails in torch 2.11."""
+    if not isinstance(table, DTensor):
+        return table[tokens].to(dtype)
+    mesh = table.device_mesh
+    split = [p == Shard(0) for p in table.placements]
+    t_pl = tuple(Shard(0) if v else Replicate() for v in split)
+    tok_pl = tuple(Shard(0) if p == Shard(0) and not v else Replicate()
+                   for p, v in zip(tokens.placements, split))
+    coord, shard, n = mesh.get_coordinate(), 0, 1
+    for i, v in enumerate(split):
+        if v:
+            shard, n = shard * mesh.size(i) + coord[i], n * mesh.size(i)
+    lo = shard * (table.shape[0] // n)
+
+    def rows(t, tok):
+        idx = tok - lo
+        hit = (idx >= 0) & (idx < t.shape[0])
+        out = t[idx.clamp(0, t.shape[0] - 1)].to(dtype)
+        return torch.where(hit[..., None], out, torch.zeros((), dtype=dtype,
+                                                             device=out.device))
+    out_pl = tuple(Partial() if v else p for v, p in zip(split, tok_pl))
+    # the table's local gradient holds only this rank's token rows
+    grad_pl = tuple(Shard(0) if v else (Partial() if p == Shard(0) else p)
+                    for v, p in zip(split, tok_pl))
+    h = local_map(rows, out_placements=(out_pl,), in_placements=(t_pl, tok_pl),
+                  in_grad_placements=(grad_pl, tok_pl),
+                  device_mesh=mesh)(place(table, t_pl), place(tokens, tok_pl))
+    return place(h, tok_pl)
+
+
 def _embed(params, batch: Dict[str, Tensor], cfg: ModelConfig,
            positions: Optional[Tensor] = None) -> Tensor:
     dt = _dtype(cfg)
@@ -196,9 +240,9 @@ def _embed(params, batch: Dict[str, Tensor], cfg: ModelConfig,
     else:
         emb = params["embed"]
         if isinstance(emb, dict):  # quantised embedding
-            h = emb["q"][batch["tokens"]].to(dt) * emb["s"].to(dt)
+            h = _lookup(emb["q"], batch["tokens"], dt) * emb["s"].to(dt)
         else:
-            h = emb[batch["tokens"]].to(dt)
+            h = _lookup(emb, batch["tokens"], dt)
     if cfg.norm == "gemma_rmsnorm":
         # sqrt(d) rounded to the activation dtype first, as the reference
         # does (bf16: sqrt(2560) = 50.596 -> 50.5).
@@ -314,11 +358,28 @@ def forward_train(params, batch: Dict[str, Tensor], cfg: ModelConfig
                        "batch", None, None)
     labels = batch["labels"][:, 1:]
     lw = (labels >= 0).float()                           # -1 = padding
-    lse = torch.logsumexp(logits, -1)
-    tgt = torch.gather(logits, -1, labels.clamp_min(0)[..., None].long())[..., 0]
-    ce = torch.sum((lse - tgt) * lw) / lw.sum().clamp_min(1.0)
+    ce = torch.sum(_token_nll(logits, labels) * lw) / lw.sum().clamp_min(1.0)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _nll(logits: Tensor, labels: Tensor) -> Tensor:
+    lse = torch.logsumexp(logits, -1)
+    return lse - torch.gather(logits, -1,
+                              labels.clamp_min(0)[..., None].long())[..., 0]
+
+
+def _token_nll(logits: Tensor, labels: Tensor) -> Tensor:
+    """Each token's -log p(label) from f32 logits (B, S, V) with whole
+    vocab rows.  Under a mesh it runs on each rank's own rows through
+    ``local_map``: DTensor's gather backward builds a zero tensor of the
+    global logits' shape on every rank before it slices its rows."""
+    if not isinstance(logits, DTensor):
+        return _nll(logits, labels)
+    pl = tuple(p if p == Shard(0) else Replicate() for p in logits.placements)
+    return local_map(_nll, out_placements=(pl,), in_placements=(pl, pl),
+                     device_mesh=logits.device_mesh)(place(logits, pl),
+                                                     place(labels, pl))
 
 
 def forward_prefill(params, batch: Dict[str, Tensor],
@@ -399,12 +460,16 @@ def _state_slice(cache, kind: str, i: int) -> Dict[str, Tensor]:
     return {sk: cache[ck][i] for sk, ck in _STATE_KEYS[kind] if ck in cache}
 
 
-def _state_write(new_cache, kind: str, i: int, ns: Dict[str, Tensor]):
-    """Write layer ``i``'s new state into ``new_cache`` in place, cast to
-    the cache's dtypes."""
+def _stack_states(cache, kind: str, states, cast: bool):
+    """The cache entries of ``kind`` from every layer's new state
+    (``states[i]`` is layer ``i``'s), stacked over the layers; ``cast``
+    takes the cache's dtypes, else the dtypes the blocks returned."""
+    out = {}
     for sk, ck in _STATE_KEYS[kind]:
-        if ck in new_cache:
-            new_cache[ck][i] = ns[sk]
+        if ck in cache:
+            out[ck] = torch.stack([ns[sk].to(cache[ck].dtype) if cast
+                                   else ns[sk] for ns in states])
+    return out
 
 
 def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
@@ -443,14 +508,11 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
                 state=_state_slice(cache, kind, layer), cache_pos=cache_pos,
                 ring_window=ring)
             states.append(ns)
-        new_cache = dict(cache)
-        for sk, ck in _STATE_KEYS[kind]:
-            if ck in cache:
-                new_cache[ck] = torch.stack([ns[sk] for ns in states])
+        new_cache = {**cache, **_stack_states(cache, kind, states, False)}
         h = L.norm_apply(params["final_norm"], h, cfg)
         return _logits(params, h, cfg), new_cache
 
-    new_cache = {k: v.clone() for k, v in cache.items()}
+    states = {"attn": {}, "rec": {}}
     pat = cfg.recurrent.block_pattern
     full = cfg.n_layers // len(pat)
     win = cfg.attn.window or _NO_WINDOW
@@ -467,7 +529,7 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
                 positions=positions, window=win if kind == "attn" else None,
                 mode="decode", state=_state_slice(cache, kind, i),
                 cache_pos=cache_pos, ring_window=ring)
-            _state_write(new_cache, kind, i, ns)
+            states[kind][i] = ns
     lo = n_rec_pos * full
     for p in params["tail"]:
         for layer in range(tree_leaves(p)[0].shape[0]):
@@ -475,8 +537,12 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
                                     positions=positions, mode="decode",
                                     state=_state_slice(cache, "rec", lo),
                                     cache_pos=cache_pos)
-            _state_write(new_cache, "rec", lo, ns)
+            states["rec"][lo] = ns
             lo += 1
+    new_cache = dict(cache)
+    for kind, per in states.items():
+        new_cache.update(_stack_states(cache, kind,
+                                       [per[i] for i in range(len(per))], True))
     h = L.norm_apply(params["final_norm"], h, cfg)
     return _logits(params, h, cfg), new_cache
 

@@ -28,7 +28,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import cast_tree
-from repro_torch.sharding.partition import place
+from repro_torch.sharding.partition import constrain, place
 from repro_torch.training import compress as C
 from repro_torch.training.optimizer import OptConfig, apply_updates, init_opt_state
 from repro_torch.training.tree import tree_leaves, tree_map
@@ -152,5 +152,8 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig):
     def decode_step(params, cache, batch):
         logits, cache = T.forward_decode(params, cache, batch, cfg)
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        # under a mesh the argmax takes whole vocab rows: gathered over
+        # "model" first (DTensor's argmax over a split dim reads values)
+        last = constrain(logits[:, -1], "batch", None)
+        return torch.argmax(last, dim=-1), cache
     return decode_step

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package ``repro``, and the
-package imports in a process where both are blocked."""
+"""The port stands alone: no module of ``repro_torch``, no script of
+``examples/torch`` and no line of ``chip_smoke.py`` imports JAX or the
+JAX package ``repro``, and the package imports in a process where both
+are blocked."""
 
 import ast
 import os
@@ -11,8 +12,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -52,7 +53,8 @@ def test_port_imports_with_jax_and_reference_blocked():
             "import repro_torch.cells.rglru, repro_torch.launch.mesh\n"
             "import repro_torch.sharding.partition\n"
             "import repro_torch.explore, repro_torch.core.energy\n"
-            "import repro_torch.analysis.report\n"
+            "import repro_torch.analysis.report, repro_torch.analysis.hlo\n"
+            "import repro_torch.launch.dryrun\n"
             "from repro_torch import explore\n"
             "pl = explore.sweep(explore.SearchSpace(batch=4, hidden_size=8),\n"
             "                   iters=1, device='cpu')\n"
