@@ -1,0 +1,11 @@
+"""The harness's tests run from the checkout's root:
+``PYTHONPATH=src python -m pytest -q perfbench/tests`` (``-m gpu`` on the
+card for the one that needs it)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)

@@ -1,0 +1,227 @@
+"""The traced sub-window: device operations from ``torch.profiler``, and
+host spans recorded around the server's layers.
+
+The profiler records every device operation in the process (kernels,
+copies, fills), whichever thread launched it.  Two annotations made on
+the client's thread map the profiler's clock onto the host's.  While the
+traced sub-window runs, :class:`Spans` records when the server's
+compute thread executes a wave (``server.execute``) and within it the
+guarded datapath (``server.datapath``), when its assembler builds a wave
+(``server.assemble``), and when the client submits and handles polled
+results; each idle gap of the device is then put down to what the host
+was doing at its middle, or to ``waiting`` where no span was open (every
+thread waiting for a deadline, an arrival or a result).  Nothing is
+written to disk.
+
+A trace is read only where it is whole (:meth:`TraceResult.fault`):
+every guarded datapath span inside the sub-window overlaps some device
+operation, and the spans saw the waves the server counted.  The spans
+wrap the server's own methods by name (``_sched._execute``,
+``_sched._build_wave``, ``guard.run``): a program that renames one fails
+the run at set-up, and one that moves its waves elsewhere fails the
+second check.
+"""
+
+from __future__ import annotations
+
+import bisect
+import time
+from typing import Dict, List, Optional, Tuple
+
+clock = time.perf_counter
+
+MARK = "perfbench.mark"
+# Which host activity an idle gap is put down to, first match wins.
+GAP_ORDER = ("server.datapath", "server.execute", "server.assemble",
+             "client.submit", "client.poll")
+# How far a device operation may lie outside a datapath span on the host
+# clock (the two clocks are matched at the sub-window's ends only).
+SLACK_S = 0.0005
+
+
+class Spans:
+    """Host spans ``(label, start, end)``, recorded while ``on``."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: List[Tuple[str, float, float]] = []
+
+    def add(self, label: str, t0: float, t1: float) -> None:
+        self.spans.append((label, t0, t1))
+
+    def wrap(self, obj, attr: str, label: str) -> None:
+        """Replace ``obj.attr`` by a wrapper that records a span around
+        each call while ``on``."""
+        orig = getattr(obj, attr)
+
+        def wrapped(*args, **kwargs):
+            if not self.on:
+                return orig(*args, **kwargs)
+            t0 = clock()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.spans.append((label, t0, clock()))
+
+        setattr(obj, attr, wrapped)
+
+    def instrument(self, server) -> None:
+        self.wrap(server._sched, "_execute", "server.execute")
+        self.wrap(server._sched, "_build_wave", "server.assemble")
+        self.wrap(server.guard, "run", "server.datapath")
+
+
+class TraceResult:
+    """What the traced sub-window ``[t_a, t_b]`` (host clock) saw: device
+    operations ``(name, start, end)`` on the host clock, their busy
+    seconds, and the host spans."""
+
+    def __init__(self, t_a: float, t_b: float,
+                 ops: List[Tuple[str, float, float]],
+                 spans: List[Tuple[str, float, float]], cuda: bool = True):
+        self.t_a, self.t_b, self.cuda = t_a, t_b, cuda
+        self.ops = sorted(ops, key=lambda o: o[1])
+        self.spans = spans
+        self.busy_intervals = _union([(s, e) for _, s, e in self.ops],
+                                     t_a, t_b)
+        self.busy_s = sum(e - s for s, e in self.busy_intervals)
+
+    @property
+    def window_s(self) -> float:
+        return self.t_b - self.t_a
+
+    def fault(self, waves: int) -> Optional[str]:
+        """Why this trace cannot be read, or None.  ``waves``: the waves
+        the server counted in the sub-window.  (Without a card no device
+        operation is traced, and nothing is read from the device.)"""
+        paths = [(s, e) for lab, s, e in self.spans
+                 if lab == "server.datapath" and s >= self.t_a
+                 and e <= self.t_b]
+        if waves >= 2 and not paths:
+            return (f"the host spans saw none of the {waves} waves the "
+                    f"server counted: the program's waves no longer pass "
+                    f"through what trace.Spans.instrument wraps")
+        if not self.cuda:
+            return None
+        missed = sum(1 for s, e in paths if not _overlaps(
+            self.busy_intervals, s - SLACK_S, e + SLACK_S))
+        if missed:
+            outside = sum(1 for _, s, e in self.ops
+                          if e <= self.t_a or s >= self.t_b)
+            return (f"{missed} of {len(paths)} datapath spans ({waves} waves "
+                    f"counted) overlap no device operation; the trace holds "
+                    f"{len(self.ops)} device operations, {outside} of them "
+                    f"outside the sub-window")
+        return None
+
+    def kernel_times(self, symbol: str) -> List[float]:
+        """Durations (s) of the device operations whose name holds
+        ``symbol``."""
+        return [e - s for name, s, e in self.ops if symbol in name]
+
+    def device_ops(self, top: int = 10) -> List[List]:
+        """The device operations that took most time, by name."""
+        tot: Dict[str, float] = {}
+        for name, s, e in self.ops:
+            tot[name] = tot.get(name, 0.0) + (e - s)
+        return [[n, t] for n, t in
+                sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
+
+    def idle_gaps(self, top: int = 10) -> List[List]:
+        """Idle seconds of the device, summed by what the host was doing
+        in the middle of each gap."""
+        tot: Dict[str, float] = {}
+        edges = [self.t_a] + [x for iv in self.busy_intervals for x in iv] \
+            + [self.t_b]
+        by_label = {lab: sorted((s, e) for l2, s, e in self.spans
+                                if l2 == lab) for lab in GAP_ORDER}
+        for g0, g1 in zip(edges[0::2], edges[1::2]):
+            if g1 <= g0:
+                continue
+            mid = 0.5 * (g0 + g1)
+            label = next((lab for lab in GAP_ORDER
+                          if _covers(by_label[lab], mid)), "waiting")
+            tot[label] = tot.get(label, 0.0) + (g1 - g0)
+        return [[n, t] for n, t in
+                sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def _union(intervals, lo: float, hi: float) -> List[Tuple[float, float]]:
+    out: List[List[float]] = []
+    for s, e in sorted(intervals):
+        s, e = max(s, lo), min(e, hi)
+        if e <= s:
+            continue
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def _overlaps(intervals: List[Tuple[float, float]], a: float,
+              b: float) -> bool:
+    """Whether sorted disjoint ``intervals`` meet ``[a, b]``."""
+    i = bisect.bisect_left(intervals, (a, a))
+    return any(s <= b and e >= a for s, e in intervals[max(0, i - 1):i + 1])
+
+
+def _covers(spans: List[Tuple[float, float]], t: float) -> bool:
+    i = bisect.bisect_right(spans, (t, float("inf"))) - 1
+    return i >= 0 and spans[i][0] <= t <= spans[i][1]
+
+
+def _activities(cuda: bool):
+    from torch.profiler import ProfilerActivity
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+
+
+class Profiler:
+    """``torch.profiler`` over the traced sub-window (device operations
+    only where ``cuda``)."""
+
+    def __init__(self, spans: Spans, cuda: bool = True):
+        self.spans, self.cuda = spans, cuda
+        self._prof = None
+
+    def warm(self) -> None:
+        """Start and stop the profiler once, so that its own start-up is
+        set-up and not in the traced sub-window."""
+        import torch
+        from torch.profiler import profile
+        with profile(activities=_activities(self.cuda)):
+            torch.ones(1, device="cuda" if self.cuda else "cpu").add_(1)
+            if self.cuda:
+                torch.cuda.synchronize()
+
+    def start(self) -> float:
+        from torch.autograd.profiler import record_function
+        from torch.profiler import profile
+        self._prof = profile(activities=_activities(self.cuda))
+        self._prof.__enter__()
+        self.spans.spans.clear()
+        self.spans.on = True
+        with record_function(MARK):
+            self._m0 = clock()
+        return self._m0
+
+    def stop(self) -> TraceResult:
+        import torch
+        from torch.autograd.profiler import record_function
+        with record_function(MARK):
+            m1 = clock()
+        self.spans.on = False
+        if self.cuda:
+            torch.cuda.synchronize()
+        self._prof.__exit__(None, None, None)
+        events = self._prof.events()
+        marks = sorted(e.time_range.start for e in events if e.name == MARK)
+        if len(marks) < 2:
+            raise RuntimeError("the profiler lost the client's annotations")
+        # trace microseconds -> host seconds, from the two annotations
+        scale = (m1 - self._m0) / ((marks[-1] - marks[0]) * 1e-6)
+        to_host = lambda us: self._m0 + (us - marks[0]) * 1e-6 * scale
+        ops = [(e.name, to_host(e.time_range.start), to_host(e.time_range.end))
+               for e in events if str(e.device_type).endswith("CUDA")]
+        return TraceResult(self._m0, m1, ops, list(self.spans.spans),
+                           cuda=self.cuda)
