@@ -1149,7 +1149,7 @@ def phase8_cluster(repro_torch, session, mods, card):
             f"launches {serve_launches['slot']}; {summary['samples_per_s']:.3f} "
             f"samples/s merged ({n * k / wall_s:.3f} by submit-to-drain wall), "
             f"p50 {summary['latency_ms']['p50']:.6f} ms p99 "
-            f"{summary['latency_ms']['p99']:.6f} ms per wave; replica infers "
+            f"{summary['latency_ms']['p99']:.6f} ms per window; replica infers "
             f"{infer_launches} on {card}")
         # A planned drain: r3's carries are read back and seeded at their
         # new ring homes, so their next window continues bit for bit.
@@ -3505,7 +3505,7 @@ def main() -> int:
                 server.submit(f"s{i}", xs[i, w])
         server.drain(timeout=600)
         warm = server.metrics_summary()
-    log(f"phase 5: StreamServer warm: {warm['waves']} waves, per-wave latency "
+    log(f"phase 5: StreamServer warm: {warm['waves']} waves, per-window latency "
         f"p50 {warm['latency_ms']['p50']:.6f} ms p99 "
         f"{warm['latency_ms']['p99']:.6f} ms, compute mean "
         f"{warm['compute_ms_mean']:.6f} ms, {warm['samples_per_s']:.3f} "
@@ -3529,7 +3529,7 @@ def main() -> int:
         log(f"phase 5: cluster warm, {n_rep} replica(s) on the card, batch "
             f"{batch}: {cw['waves']} waves, {cw['samples_per_s']:.3f} samples/s "
             f"merged ({n_streams * n_windows / wall_s:.3f} by submit-to-drain "
-            f"wall), per-wave p50 {cw['latency_ms']['p50']:.6f} ms p99 "
+            f"wall), per-window p50 {cw['latency_ms']['p50']:.6f} ms p99 "
             f"{cw['latency_ms']['p99']:.6f} ms, compute mean "
             f"{cw['compute_ms_mean']:.6f} ms on {card}")
 

@@ -1,0 +1,14 @@
+"""``sync_ms``: the mean time (ms) the windows of ``window_p90_ms``'s tail
+spent from the kernel's launch call returning to the outputs on the
+host: the rest of the engine's enqueues, the wait on the device and the
+copy back. Read from the serving program's own stage record (stage
+``sync`` of ``repro_torch.serving.metrics.STAGES``, host clock), joined
+to the client's rows by ``perfbench/program_record.py``; windows with a
+NaN stamp are passed over. Nothing where the program keeps no record, or
+its record lost rows of the measured window."""
+
+from perfbench import program_record
+
+
+def read(run):
+    return program_record.tail_stage_ms(run, "sync")

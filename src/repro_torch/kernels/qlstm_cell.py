@@ -26,13 +26,16 @@ values run the same CUDA-core MAC.
 :data:`LAUNCHES` counts kernel launches, one per launch, by entry:
 ``"multilayer"`` (:func:`qlstm_seq_multilayer`), ``"seq"``
 (:func:`qlstm_seq`, the same stack kernel at one layer) and ``"slot"``
-(:func:`qlstm_seq_slot`).
+(:func:`qlstm_seq_slot`).  :data:`LAUNCH_STAMP` keeps, per thread, the
+host time at which that thread's last launch call returned.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -45,6 +48,16 @@ from repro_torch.kernels import _build
 Tensor = torch.Tensor
 
 LAUNCHES = {"multilayer": 0, "seq": 0, "slot": 0}
+
+
+class _LaunchStamp(threading.local):
+    """Per thread: ``t``, the ``time.perf_counter`` at which the thread's
+    last launch call returned (NaN before any)."""
+
+    t = float("nan")
+
+
+LAUNCH_STAMP = _LaunchStamp()
 
 _CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
 
@@ -293,10 +306,12 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.qlstm_launch(ctypes.byref(args), x.element_size(),
                           int(table is not None), stream)
+    t_ret = time.perf_counter()
     if rc != 0:
         raise RuntimeError(f"qlstm kernel launch failed: "
                            f"{lib.qlstm_error_string(rc).decode()}")
     LAUNCHES[counter or ("slot" if table is not None else "multilayer")] += 1
+    LAUNCH_STAMP.t = t_ret
     return (*results, args)
 
 

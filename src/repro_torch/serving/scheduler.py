@@ -110,6 +110,7 @@ class Slot:
     sub_idx: int      # global submission index — strictly increasing across
                       # the scheduler's lifetime, orders windows ACROSS
                       # streams (end_stream tombstones compare against it)
+    t_submit: float   # perf_counter when submit enqueued it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +121,7 @@ class Wave:
     slots: Tuple[Slot, ...]                   # one per real row
     t_oldest: float                           # submit time of oldest window
     deadline_flush: bool                      # partial wave forced by deadline
+    t_selected: float                         # the assembler picked it
 
     @property
     def occupancy(self) -> int:
@@ -372,7 +374,8 @@ class WaveScheduler:
             if shed:
                 for p in shed:
                     if self._on_shed is not None:
-                        self._on_shed(Slot(p.stream_id, p.seq, p.sub_idx))
+                        self._on_shed(Slot(p.stream_id, p.seq, p.sub_idx,
+                                           p.t_submit))
                 with self._cond:
                     # A shed window is accounted as completed (flush must
                     # not wait forever for work that was dropped) only
@@ -410,7 +413,8 @@ class WaveScheduler:
                 self._pending = rest
                 self._cond.notify_all()   # wake submitters (backpressure)
             wave = self._build_wave(chosen, deadline_flush=not full
-                                    and deadline_hit and not force)
+                                    and deadline_hit and not force,
+                                    t_selected=now)
             if not self._put_wave(wave):
                 break
         self._put_wave(_SENTINEL)
@@ -433,18 +437,18 @@ class WaveScheduler:
                 self._cond.notify_all()   # wake blocked submitters
             return shed
 
-    def _build_wave(self, chosen: List[_Pending],
-                    deadline_flush: bool) -> Wave:
+    def _build_wave(self, chosen: List[_Pending], deadline_flush: bool,
+                    t_selected: float) -> Wave:
         rows = [p.window for p in chosen]
         # Pad the partial wave to the static shape by repeating the last
         # real window; padded rows are computed and DROPPED — they are
         # never emitted as results and never touch the state store.
         rows.extend([rows[-1]] * (self.batch - len(rows)))
         return Wave(x=np.stack(rows, axis=0),
-                    slots=tuple(Slot(p.stream_id, p.seq, p.sub_idx)
-                                for p in chosen),
+                    slots=tuple(Slot(p.stream_id, p.seq, p.sub_idx,
+                                     p.t_submit) for p in chosen),
                     t_oldest=min(p.t_submit for p in chosen),
-                    deadline_flush=deadline_flush)
+                    deadline_flush=deadline_flush, t_selected=t_selected)
 
     def _put_wave(self, item) -> bool:
         # On abandon (_stop) give up rather than block: the compute loop

@@ -51,6 +51,7 @@ exactly one replica by consistent hash so its carry stays replica-local.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -60,9 +61,12 @@ from typing import (Dict, Hashable, Iterable, Iterator, List, Optional,
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
+from repro_torch.kernels.qlstm_cell import LAUNCH_STAMP
 from repro_torch.serving.faults import FaultInjector
-from repro_torch.serving.metrics import MetricsSink, WaveRecord
+from repro_torch.serving.metrics import (MetricsSink, WaveRecord,
+                                         new_server_id, publish)
 from repro_torch.serving.resilience import ExecutionGuard, ResiliencePolicy
 from repro_torch.serving.scheduler import (OverloadPolicy, Slot, Wave,
                                            WaveScheduler)
@@ -84,6 +88,18 @@ def _params_equal(a, b) -> bool:
     return len(la) == len(lb) and all(
         x is y or (x.shape == y.shape and torch.equal(x.cpu(), y.cpu()))
         for x, y in zip(la, lb))
+
+
+# Profiler ranges of a wave's stages: the C++ range costs ~1 us to open
+# and close against ``record_function``'s ~10.
+_Range = torch._C._profiler._RecordFunctionFast
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _stage(traced: bool, name: str):
+    """A profiler range ``name`` on this thread while ``traced``, else a
+    context that does nothing."""
+    return _Range(name) if traced else _NO_RANGE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +190,8 @@ class StreamResult:
     when ``error`` is set: ``"shed"`` (deadline-aware load shedding
     dropped the window uncomputed) or a ``"compute_failed: ..."``
     description (every engine of the degradation ladder failed the wave).
+    ``record`` is the window's row id in its server's stage record
+    (``MetricsSink.windows``; -1 for a shed window, which has none).
     ``state_reset`` flags a window computed from the all-zero reset carry
     although the stream had history (LRU eviction, injected state loss, or
     a failed wave dropped it) — the prediction is a valid model output, it
@@ -195,6 +213,7 @@ class StreamResult:
     state_reset: bool = False
     backend: Optional[str] = None
     routed_replica: Optional[Hashable] = None
+    record: int = dataclasses.field(default=-1, repr=False, compare=False)
 
     @property
     def ok(self) -> bool:
@@ -306,7 +325,9 @@ class StreamServer:
             self.states = StateStore(cfg.max_streams)
             if fault_injector is not None:
                 self.states = fault_injector.wrap_state_store(self.states)
+        self._server_id = new_server_id()
         self.metrics = MetricsSink()
+        publish(self._server_id, self.metrics)
         self._results: "queue.Queue" = queue.Queue(
             maxsize=cfg.max_results or 0)
         self._seq: Dict[Hashable, int] = {}
@@ -400,6 +421,7 @@ class StreamServer:
             except queue.Empty:
                 pass
             if out:
+                self.metrics.note_polled(out, time.perf_counter())
                 return out
             err = self._sched.error
             if err is not None:
@@ -534,11 +556,13 @@ class StreamServer:
 
     def reset_metrics(self) -> None:
         """Start a fresh metrics window (e.g. after a warm-up wave, so the
-        compile time stays out of the measured interval)."""
+        compile time stays out of the measured interval); the new sink
+        becomes this server's entry in ``metrics.current_sinks()``."""
         self.metrics = MetricsSink()
+        publish(self._server_id, self.metrics)
 
     def metrics_summary(self) -> Dict:
-        """The serving report: achieved samples/s, per-wave latency
+        """The serving report: achieved samples/s, per-window latency
         p50/p95/p99, occupancy, deadline flushes, state-store counters, and
         the energy model's GOP/s/W at the MEASURED operating point (mean
         wave compute latency, mean occupancy) — the paper's Table-4 metric
@@ -634,37 +658,50 @@ class StreamServer:
         The guard absorbs engine failures (retry, backoff, degradation
         down the bit-identical ladder); only a wave that fails on EVERY
         engine is converted into per-stream error results — the compute
-        thread survives either way."""
+        thread survives either way.
+
+        The wave's stage stamps go to the sink's record with it; while a
+        ``torch.profiler`` runs (one flag read otherwise), the stages are
+        ``serving.*`` ranges on the profiler's timeline too."""
+        traced = _profiler._is_profiler_enabled
+        with _stage(traced, "serving.wave"):
+            self._run_wave(wave, traced)
+
+    def _run_wave(self, wave: Wave, traced: bool) -> None:
+        """:meth:`_execute`'s wave, stamped into the sink's record."""
         sess_idx = self._rr % len(self._fns)
         fns = self._fns[sess_idx]
         self._rr += 1
         t0 = time.perf_counter()
-        device = self._sessions[sess_idx].device
-        x = torch.as_tensor(wave.x, device=device)
         device_state = self.state_residency == "device"
-        if device_state:
-            # Slot path: the carries never leave the table — only two (B,)
-            # int32 slot-id vectors cross to the device.  The allocator
-            # transaction (lookup + assign + tombstone checks) happens
-            # BEFORE compute, so faults can only strand slots, never
-            # corrupt the allocator<->table correspondence.
-            g, s, reset, rows, evicted = self._gather_slots(wave)
-            self.metrics.count("slot_id_bytes", int(g.nbytes + s.nbytes))
-            # The slot datapath is functional: it reads the committed table
-            # and returns a new one, never writing the live table.  That is
-            # what makes an attempt the guard abandoned at its timeout safe
-            # (its kernel may still run beside the retry on CUDA) and what
-            # lets the fault injector's corrupt_slot write the committed
-            # table in place.
-            outcome = self.guard.run(fns, x, self.states.table,
-                                     torch.as_tensor(g, device=device),
-                                     torch.as_tensor(s, device=device))
-        elif self.config.stateful:
-            gathered, reset = self._gather(wave, device)
-            outcome = self.guard.run(fns, x, gathered)
-        else:
-            reset = [False] * len(wave.slots)
-            outcome = self.guard.run(fns, x)
+        LAUNCH_STAMP.t = float("nan")
+        with _stage(traced, "serving.prepare"):
+            device = self._sessions[sess_idx].device
+            x = torch.as_tensor(wave.x, device=device)
+            if device_state:
+                # Slot path: the carries never leave the table — only two
+                # (B,) int32 slot-id vectors cross to the device.  The
+                # allocator transaction (lookup + assign + tombstone checks)
+                # happens BEFORE compute, so faults can only strand slots,
+                # never corrupt the allocator<->table correspondence.
+                g, s, reset, rows, evicted = self._gather_slots(wave)
+                self.metrics.count("slot_id_bytes",
+                                   int(g.nbytes + s.nbytes))
+                # The slot datapath is functional: it reads the committed
+                # table and returns a new one, never writing the live
+                # table.  That is what makes an attempt the guard abandoned
+                # at its timeout safe (its kernel may still run beside the
+                # retry on CUDA) and what lets the fault injector's
+                # corrupt_slot write the committed table in place.
+                outcome = self.guard.run(fns, x, self.states.table,
+                                         torch.as_tensor(g, device=device),
+                                         torch.as_tensor(s, device=device))
+            elif self.config.stateful:
+                gathered, reset = self._gather(wave, device)
+                outcome = self.guard.run(fns, x, gathered)
+            else:
+                reset = [False] * len(wave.slots)
+                outcome = self.guard.run(fns, x)
         if not outcome.ok:
             self._fail_wave(wave, outcome, t0, sess_idx)
             if device_state:
@@ -673,33 +710,43 @@ class StreamServer:
                 # wave's table update was discarded.
                 self._reconcile_evictions(evicted)
             return
+        # A launch stamp on this thread is the successful attempt's only
+        # when the wave took one attempt (a failed one may have launched).
+        t_launch = (LAUNCH_STAMP.t if not outcome.attempt_errors
+                    else float("nan"))
         if device_state:
             y, new_table = outcome.value
-            y = y.cpu().numpy()
-            self.states.commit(new_table, rows)
-            self._retire(wave)
-            self._reconcile_evictions(evicted)
         elif self.config.stateful:
             y, new_state = outcome.value
-            y = y.cpu().numpy()
-            evicted = self._scatter(wave, new_state)
-            self._retire(wave)
-            self._reconcile_evictions(evicted)
         else:
-            y = outcome.value.cpu().numpy()
-        n_reset = sum(reset)
-        if n_reset:
-            self.metrics.count("state_resets", n_reset)
-        t1 = time.perf_counter()
-        self.metrics.record_wave(WaveRecord(
-            t_done=t1, compute_s=t1 - t0, latency_s=t1 - wave.t_oldest,
-            occupancy=wave.occupancy, batch=self.config.batch,
-            deadline_flush=wave.deadline_flush))
-        for i, slot in enumerate(wave.slots):
-            self._emit(StreamResult(slot.stream_id, slot.seq, y[i],
-                                    state_reset=reset[i],
-                                    backend=outcome.backend,
-                                    routed_replica=sess_idx))
+            y = outcome.value
+        with _stage(traced, "serving.sync"):
+            y = y.cpu().numpy()
+        t_host = time.perf_counter()
+        with _stage(traced, "serving.emit"):
+            if device_state:
+                self.states.commit(new_table, rows)
+                self._retire(wave)
+                self._reconcile_evictions(evicted)
+            elif self.config.stateful:
+                evicted = self._scatter(wave, new_state)
+                self._retire(wave)
+                self._reconcile_evictions(evicted)
+            n_reset = sum(reset)
+            if n_reset:
+                self.metrics.count("state_resets", n_reset)
+            t1 = time.perf_counter()
+            sink = self.metrics
+            first = sink.record_wave(WaveRecord(
+                t_done=t1, compute_s=t1 - t0, occupancy=wave.occupancy,
+                batch=self.config.batch, deadline_flush=wave.deadline_flush,
+                t_selected=wave.t_selected, t_exec=t0, t_launch=t_launch,
+                t_host=t_host), wave.slots)
+            self._emit_wave(sink, first, (
+                StreamResult(slot.stream_id, slot.seq, y[i],
+                             state_reset=reset[i], backend=outcome.backend,
+                             routed_replica=sess_idx, record=first + i)
+                for i, slot in enumerate(wave.slots)))
 
     def _fail_wave(self, wave: Wave, outcome, t0: float,
                    sess_idx: int) -> None:
@@ -716,13 +763,24 @@ class StreamServer:
             self._retire(wave)
         self.metrics.count("stream_errors", wave.occupancy)
         t1 = time.perf_counter()
-        self.metrics.record_wave(WaveRecord(
-            t_done=t1, compute_s=t1 - t0, latency_s=t1 - wave.t_oldest,
-            occupancy=wave.occupancy, batch=self.config.batch,
-            deadline_flush=wave.deadline_flush))
-        for slot in wave.slots:
-            self._emit(StreamResult(slot.stream_id, slot.seq, None,
-                                    error=err, routed_replica=sess_idx))
+        sink = self.metrics
+        first = sink.record_wave(WaveRecord(
+            t_done=t1, compute_s=t1 - t0, occupancy=wave.occupancy,
+            batch=self.config.batch, deadline_flush=wave.deadline_flush,
+            t_selected=wave.t_selected, t_exec=t0), wave.slots)
+        self._emit_wave(sink, first, (
+            StreamResult(slot.stream_id, slot.seq, None, error=err,
+                         routed_replica=sess_idx, record=first + i)
+            for i, slot in enumerate(wave.slots)))
+
+    def _emit_wave(self, sink: MetricsSink, first: int, results) -> None:
+        """Emit a wave's results in order, stamping each as it goes on the
+        results queue into ``sink``'s rows from record id ``first`` on."""
+        stamps: List[float] = []
+        for r in results:
+            stamps.append(time.perf_counter())
+            self._emit(r)
+        sink.note_emitted(first, stamps)
 
     def _shed(self, slot: Slot) -> None:
         """Scheduler shed callback (assembler thread): the window was

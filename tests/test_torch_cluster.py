@@ -35,6 +35,8 @@ from repro_torch.serving import (ClusterConfig, ClusterServer,  # noqa: E402
                                  HashRing, MetricsSink, OverloadPolicy,
                                  ServerOverloaded)
 from repro_torch.serving.metrics import WaveRecord  # noqa: E402
+from repro_torch.serving.scheduler import Slot  # noqa: E402
+from repro_torch.serving.server import StreamResult  # noqa: E402
 
 MODEL_KW = dict(input_size=1, hidden_size=8, num_layers=2, seq_len=4)
 SEQ_LEN = MODEL_KW["seq_len"]
@@ -152,19 +154,28 @@ def test_ring_edge_cases():
 # MetricsSink.merge — the cluster aggregation primitive
 # ---------------------------------------------------------------------------
 
-def _rec(t, lat=0.010, occ=4, batch=4):
-    return WaveRecord(t_done=t, compute_s=lat / 2, latency_s=lat,
-                      occupancy=occ, batch=batch, deadline_flush=False)
+def _rec(sink, t, lat=0.010, occ=4, batch=4):
+    """Record one wave done at ``t`` whose ``occ`` windows were each
+    submitted ``lat`` before it, emitted and polled at ``t``."""
+    slots = [Slot(f"s{i}", 0, i, t - lat) for i in range(occ)]
+    first = sink.record_wave(
+        WaveRecord(t_done=t, compute_s=lat / 2, occupancy=occ, batch=batch,
+                   deadline_flush=False, t_exec=t - lat / 2), slots)
+    sink.note_emitted(first, [t] * occ)
+    sink.note_polled([StreamResult(s.stream_id, 0, None, record=first + i)
+                      for i, s in enumerate(slots)], t)
 
 
 def test_merge_empty_and_partial():
     assert MetricsSink.merge([]).summary()["waves"] == 0
     empty, live = MetricsSink(), MetricsSink()
     live.note_submit(100.0)
-    live.record_wave(_rec(100.5))
-    s = MetricsSink.merge([empty, live]).summary()
+    _rec(live, 100.5)
+    m = MetricsSink.merge([empty, live])
+    s = m.summary()
     assert s["waves"] == 1 and s["samples"] == 4
     assert s["wall_s"] == pytest.approx(0.5)
+    assert len(m.windows()["seq"]) == 4 and m.ring_rows == 4
 
 
 def test_merge_sums_counters_and_spans_walls():
@@ -172,8 +183,8 @@ def test_merge_sums_counters_and_spans_walls():
     a.note_submit(10.0)
     b.note_submit(10.2)
     for t in (10.5, 11.0):
-        a.record_wave(_rec(t, occ=3))
-    b.record_wave(_rec(12.0, occ=5))
+        _rec(a, t, occ=3)
+    _rec(b, 12.0, occ=5)
     a.count("sheds", 2)
     b.count("sheds")
     b.count("state_resets", 4)
@@ -186,24 +197,35 @@ def test_merge_sums_counters_and_spans_walls():
 
 
 def test_merge_percentiles_union_recent_window():
+    """The merged latency percentiles are the union of the replicas'
+    windows' submit -> polled latencies."""
     a, b = MetricsSink(), MetricsSink()
     lats = []
     for i in range(20):
-        (a if i % 2 else b).record_wave(_rec(100.0 + i, lat=0.001 * (i + 1)))
-        lats.append(0.001 * (i + 1))
-    s = MetricsSink.merge([a, b]).summary()
+        _rec(a if i % 2 else b, 100.0 + i, lat=0.001 * (i + 1), occ=2)
+        lats += [0.001 * (i + 1)] * 2
+    m = MetricsSink.merge([a, b])
+    s = m.summary()
     want = np.percentile(np.asarray(lats), [50, 95, 99]) * 1e3
     assert s["latency_ms"]["p50"] == pytest.approx(want[0])
     assert s["latency_ms"]["p99"] == pytest.approx(want[2])
+    w = m.windows()
+    assert (np.diff(w["t_exec"]) >= 0).all()
+    assert np.array_equal(w["wave"], np.repeat(np.arange(20), 2))
 
 
 def test_merge_truncates_to_window():
+    """Waves truncate to ``window`` and window rows to ``rows``, newest
+    kept; the lifetime counts stay whole."""
     a = MetricsSink()
     for i in range(10):
-        a.record_wave(_rec(100.0 + i))
-    m = MetricsSink.merge([a], window=4)
+        _rec(a, 100.0 + i, lat=0.001 * (i + 1))
+    m = MetricsSink.merge([a], window=4, rows=8)
+    assert m.ring_rows == 8
     assert [r.t_done for r in m.waves] == [106.0, 107.0, 108.0, 109.0]
     assert m.summary()["waves"] == 10
+    assert np.allclose(m.windows()["t_polled"], np.repeat([108.0, 109.0], 4))
+    assert m.summary()["latency_ms"]["p50"] == pytest.approx(9.5)
 
 
 # ---------------------------------------------------------------------------
