@@ -3483,15 +3483,28 @@ def main() -> int:
             f"{m_ms:.6f} ms device (bound {k5['bound_ms']:.6f} ms) on {card}")
     log(f"phase 5: hard_sigmoid_star (step) took the {k5['step_route']} route")
 
+    # One serving wave's datapath both ways: eager (the ids on the device)
+    # and replayed from the CUDA graph the serving tier captures (x and the
+    # ids as host arrays, staged by the engine); bit for bit.
     slot_fn = session.compiled_stateful_slots()
     xw = xs[:64, 0]
-    avgs, wall_ms = profile(lambda: slot_fn(xw, table, g, s)[0].cpu(), 20)
-    busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 20 / 1e3
-    log(f"phase 5: one serving wave's datapath (quantize, slot kernel, dense "
-        f"head, copy back; batch 64): {wall_ms / 20:.6f} ms wall, "
-        f"{busy_ms:.6f} ms device busy, idle share "
-        f"{1 - busy_ms / (wall_ms / 20):.4f} on {card}")
-    log(avgs.table(sort_by="cpu_time_total", row_limit=14))
+    routes = {"eager": (xw, table, g, s),
+              "graph": (xw, table, g.cpu().numpy(), s.cpu().numpy())}
+    y_eager, t_eager = slot_fn(*routes["eager"])
+    for _ in range(2):                       # the capture, then a replay
+        y_graph, t_graph = slot_fn(*routes["graph"])
+        check(torch.equal(y_graph, y_eager.cpu()) and torch.equal(t_graph, t_eager),
+              "the graph path differs from the eager one")
+    for route, args in routes.items():
+        avgs, wall_ms = profile(lambda args=args: slot_fn(*args)[0].cpu(), 20)
+        busy_ms = sum(device_us(e) for e in avgs if is_cuda(e)) / 20 / 1e3
+        log(f"phase 5: one serving wave's datapath, {route} (quantize, slot "
+            f"kernel, dense head, copy back; batch 64): {wall_ms / 20:.6f} ms "
+            f"wall, {busy_ms:.6f} ms device busy, idle share "
+            f"{1 - busy_ms / (wall_ms / 20):.4f} on {card}")
+        log(avgs.table(sort_by="cpu_time_total", row_limit=14))
+    log(f"phase 5: the slot path's graphs {slot_fn.stats()}; graph and eager "
+        f"equal bit for bit (y and table)")
 
     with StreamServer(session, batch=64, deadline_s=0.005,
                       max_streams=1024) as server:

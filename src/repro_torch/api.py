@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import backends, cells
+from repro_torch.backends.slot_graph import SlotGraphs
 from repro_torch.core import fixed_point as fxp
 from repro_torch.core.accelerator import (AcceleratorConfig, plan as resolve_plan,
                                           resolve_model, sync_accelerator)
@@ -277,9 +278,17 @@ class Accelerator:
     def compiled_stateful_slots(self, backend: Optional[str] = None):
         """The cached device-resident-state entry point: ``((B, T, M)
         float, table, gather_slots, scatter_slots) -> ((B, P) float,
-        new_table)``.  The fused engine gathers and scatters inside its
+        new_table)``; x and the (B,) slot ids may be host arrays or
+        tensors.  The fused engine gathers and scatters inside its
         kernel; ``ref``/``xla`` use the generic adapter.  Bit-identical to
-        ``compiled_stateful`` fed the host-gathered carries."""
+        ``compiled_stateful`` fed the host-gathered carries.  The table
+        handed in is only read.
+
+        On a CUDA session the fused engine's entry is a
+        ``backends.slot_graph.SlotGraphs``: a wave given as host arrays
+        replays a CUDA graph (y then comes back on the host, and
+        ``new_table`` is the graph's own output table, overwritten by its
+        next replay); device tensors take the eager path."""
         self._require_quantized()
         bk = self._select_stateful(backend)
         key = ("int_stateful_slots", bk.name)
@@ -292,10 +301,14 @@ class Accelerator:
 
             def slot_path(x, table, gather_slots, scatter_slots):
                 x_int = fxp.quantize(self._input(x), model.fxp)
-                y_int, new_table = impl(qparams, x_int, model, accel, table,
-                                        gather_slots, scatter_slots)
+                y_int, new_table = impl(
+                    qparams, x_int, model, accel, table,
+                    torch.as_tensor(gather_slots, device=table.device),
+                    torch.as_tensor(scatter_slots, device=table.device))
                 return fxp.dequantize(y_int, model.fxp), new_table
 
+            if bk.name == "pallas" and self.device.type == "cuda":
+                slot_path = SlotGraphs(slot_path, qparams, model, accel)
             self._fns[key] = slot_path
         return self._fns[key]
 

@@ -10,7 +10,9 @@ The whole-model paths (``run``, ``run_stateful``) execute the entire
 LSTM stack in one ``qlstm_seq_multilayer`` launch, and
 ``run_stateful_slots`` — the default serving path — in one
 ``qlstm_seq_slot`` launch that gathers and scatters each stream's carry
-against the device-resident table.  The ``1to1`` HardSigmoid* method is
+against the device-resident table (on a CUDA session the serving tier
+replays it from a CUDA graph: :func:`slot_datapath`,
+``backends/slot_graph.py``).  The ``1to1`` HardSigmoid* method is
 lowered to the bit-identical ``arithmetic`` form, as in the reference.
 ``prepare`` builds the kernels when a session resolves this engine, so a
 kernel that cannot be built fails there."""
@@ -78,11 +80,27 @@ def run_stateful_slots(qparams, x_int: Tensor, model: QLSTMConfig,
                        gather_slots: Tensor, scatter_slots: Tensor):
     """Whole model with device-resident stream state, one fused launch
     that gathers and scatters the carries — ``(y_int, new_table)``."""
+    return slot_datapath(qparams, model, accel)(x_int, table, gather_slots,
+                                                scatter_slots)
+
+
+def slot_datapath(qparams, model: QLSTMConfig, accel: AcceleratorConfig):
+    """:func:`run_stateful_slots` with the weights cast and packed once:
+    a function ``(x_int, table, gather_slots, scatter_slots) -> (y_int,
+    new_table)`` of CUDA tensors whose per-call work is all device work
+    (what ``backends/slot_graph.py`` captures into a CUDA graph)."""
     sd = model.fxp.storage_dtype
-    out, new_table = qlstm_cell.qlstm_seq_slot(
-        x_int.transpose(0, 1).to(sd), gather_slots, scatter_slots, table,
-        *_weights(qparams, sd), **_kernel_args(model, accel))
-    return dense_head(out[-1], qparams, model), new_table
+    weights = _weights(qparams, sd)
+    packed = qlstm_cell.pack_weights(*weights, sd)
+    kw = _kernel_args(model, accel)
+
+    def run_slots(x_int, table, gather_slots, scatter_slots):
+        out, new_table = qlstm_cell.qlstm_seq_slot(
+            x_int.transpose(0, 1).to(sd), gather_slots, scatter_slots, table,
+            *weights, packed=packed, **kw)
+        return dense_head(out[-1], qparams, model), new_table
+
+    return run_slots
 
 
 def run(qparams, x_int: Tensor, model: QLSTMConfig,

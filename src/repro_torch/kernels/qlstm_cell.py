@@ -27,7 +27,10 @@ values run the same CUDA-core MAC.
 ``"multilayer"`` (:func:`qlstm_seq_multilayer`), ``"seq"``
 (:func:`qlstm_seq`, the same stack kernel at one layer) and ``"slot"``
 (:func:`qlstm_seq_slot`).  :data:`LAUNCH_STAMP` keeps, per thread, the
-host time at which that thread's last launch call returned.
+host time at which that thread's last launch call returned.  A launch
+recorded into a CUDA graph is counted and stamped at each replay by
+whoever replays it (:func:`note_launch`; the serving tier's
+``backends/slot_graph.py``), not when it is captured.
 """
 
 from __future__ import annotations
@@ -235,15 +238,18 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
             hs_method: str, hs_slope_shift: int, hs_bound: float,
             ht_min: float, ht_max: float, batch_block: Optional[int],
             h0s=None, c0s=None, gather=None, scatter=None, table=None,
-            weights_in_smem: bool = True, counter: Optional[str] = None):
+            weights_in_smem: bool = True, counter: Optional[str] = None,
+            packed=None):
     """Launch the stack kernel (slot variant when ``table`` is given) on
     the current stream; returns ``(out, h_fin, c_fin | new_table, args)``
     where ``args.w_smem`` and ``args.x_smem`` report whether the weights
     and the x codes were staged in shared memory and
     ``args.rows_per_block`` the batch rows a block took
-    (:func:`_rows_per_block`).  The launch is counted under ``counter``
-    (default: the entry the variant serves, ``"slot"`` or
-    ``"multilayer"``)."""
+    (:func:`_rows_per_block`).  ``packed`` is :func:`pack_weights` of
+    the weights, made once by a caller that launches them many times.
+    The launch is counted under ``counter`` (default: the entry the
+    variant serves, ``"slot"`` or ``"multilayer"``), except while the
+    stream is capturing a CUDA graph."""
     dev = x_int.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
@@ -266,9 +272,8 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
         raise ValueError("all operands must be on the device of x_int")
     lib = load_library()
     x = x_int.contiguous()
-    w = torch.cat([t.to(sd).reshape(-1) for li in range(n)
-                   for t in (w_xs[li], w_hs[li])])
-    bias = torch.cat([b.to(torch.int32).reshape(-1) for b in b_wides])
+    w, bias = packed if packed is not None else pack_weights(
+        w_xs, w_hs, b_wides, sd)
     out = torch.empty((t_len, bsz, hdim), dtype=sd, device=dev)
     prod = fxp.product_config(cfg, cfg)
     shift = prod.frac_bits - cfg.frac_bits
@@ -310,9 +315,28 @@ def _launch(x_int: Tensor, w_xs, w_hs, b_wides, *, cfg: FixedPointConfig,
     if rc != 0:
         raise RuntimeError(f"qlstm kernel launch failed: "
                            f"{lib.qlstm_error_string(rc).decode()}")
-    LAUNCHES[counter or ("slot" if table is not None else "multilayer")] += 1
-    LAUNCH_STAMP.t = t_ret
+    if not torch.cuda.is_current_stream_capturing():
+        # A launch recorded into a CUDA graph runs at each replay, which
+        # its replayer counts and stamps.
+        note_launch(counter or ("slot" if table is not None
+                                else "multilayer"), t_ret)
     return (*results, args)
+
+
+def note_launch(counter: str, t_ret: float) -> None:
+    """Count one launch under ``counter`` and stamp this thread with
+    ``t_ret``, the host time at which the launch call returned."""
+    LAUNCHES[counter] += 1
+    LAUNCH_STAMP.t = t_ret
+
+
+def pack_weights(w_xs, w_hs, b_wides, sd: torch.dtype):
+    """The kernel's weight operands: every layer's w_x then w_h, flat, in
+    the code dtype ``sd``, and the int32 biases, flat."""
+    w = torch.cat([t.to(sd).reshape(-1) for li in range(len(w_hs))
+                   for t in (w_xs[li], w_hs[li])])
+    bias = torch.cat([b.to(torch.int32).reshape(-1) for b in b_wides])
+    return w, bias
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +405,8 @@ def qlstm_seq_slot(x_int: Tensor, gather_slots: Tensor,
                    b_wides: Sequence[Tensor], *, cfg: FixedPointConfig,
                    hs_method: str = "arithmetic", hs_slope_shift: int = 3,
                    hs_bound: float = 3.0, ht_min: float = -1.0,
-                   ht_max: float = 1.0, compute_unit: str = "mxu"):
+                   ht_max: float = 1.0, compute_unit: str = "mxu",
+                   packed=None):
     """The fused stack with device-resident stream state.
 
     ``table``: the ``(n_slots + 2, L, 2, H)`` int32 carry table (axis 2 is
@@ -389,7 +414,8 @@ def qlstm_seq_slot(x_int: Tensor, gather_slots: Tensor,
     i's carry is gathered from ``table[gather_slots[i]]`` before the first
     step and its final (h, c) scattered into ``scatter_slots[i]`` of the
     returned copy.  Returns ``(out, new_table)``; bit-exact with gathering
-    the carries on the host and calling :func:`qlstm_seq_multilayer`."""
+    the carries on the host and calling :func:`qlstm_seq_multilayer`.
+    ``packed``: :func:`pack_weights` of the weights, made once (CUDA)."""
     _check_layers(w_xs, w_hs, b_wides)
     _check_table(table, len(w_hs), w_hs[0].shape[0])
     kw = dict(cfg=cfg, hs_method=hs_method, hs_slope_shift=hs_slope_shift,
@@ -400,5 +426,5 @@ def qlstm_seq_slot(x_int: Tensor, gather_slots: Tensor,
                                     compute_unit=compute_unit, **kw)
     out, new_table, _ = _launch(x_int, w_xs, w_hs, b_wides, gather=gather_slots,
                                 scatter=scatter_slots, table=table,
-                                batch_block=None, **kw)
+                                batch_block=None, packed=packed, **kw)
     return out, new_table

@@ -164,9 +164,11 @@ class DeviceStateStore:
         self.capacity = capacity
         self._alloc = SlotAllocator(capacity)
         self._model = session.model
-        #: The persistent (capacity + 2, L, S, H) int32 carry table.  The
-        #: serving hot path replaces this reference wholesale after each
-        #: wave (:meth:`commit`) — the array itself never visits the host.
+        #: The persistent (capacity + 2, L, S, H) int32 carry table, at one
+        #: address for the store's life: every write (:meth:`commit`,
+        #: :meth:`seed_state`, :meth:`corrupt_slot`) is made in place, so
+        #: a CUDA graph that reads it stays valid.  It never visits the
+        #: host on the hot path.
         self.table = session.init_state_table(capacity)
         self._lock = threading.Lock()
 
@@ -193,12 +195,15 @@ class DeviceStateStore:
             return self._alloc.assign(stream_id)
 
     def commit(self, new_table, rows: List[Tuple[int, Hashable]]) -> None:
-        """Adopt the kernel's updated table after a successful wave.
-        ``rows`` lists the wave's real scatters as ``(batch_row,
-        stream_id)`` — unused here; it is the unit a fault-injection
-        wrapper draws per-put faults over."""
+        """Copy a successful wave's table into the live table, in place
+        (one device-to-device copy of the whole table: a copy of only the
+        scattered rows takes an index kernel whose variant depends on the
+        row count, and a variant's first use stalled a wave for tens to
+        hundreds of milliseconds on an H100).  ``rows`` lists the wave's real
+        scatters as ``(batch_row, stream_id)`` — unused here; it is the
+        unit a fault-injection wrapper draws per-put faults over."""
         with self._lock:
-            self.table = new_table
+            self.table.copy_(new_table)
 
     def pop(self, stream_id: Hashable) -> Optional[int]:
         """Release a stream's slot (end-of-stream, failed wave, shed,
@@ -240,9 +245,7 @@ class DeviceStateStore:
             slot, evicted = self._alloc.assign(stream_id)
             row = np.stack([np.stack([np.asarray(a) for a in layer])
                             for layer in state]).astype(np.int32)
-            table = self.table.clone()
-            table[slot] = torch.as_tensor(row, device=table.device)
-            self.table = table
+            self.table[slot] = torch.as_tensor(row, device=self.table.device)
         return evicted
 
     # -- fault-injection surface ---------------------------------------------
@@ -253,11 +256,10 @@ class DeviceStateStore:
         as ``FaultInjector._mutate_put``), on the table's device.  Returns
         False for an unknown stream (nothing to corrupt).
 
-        The one write into a live table outside :meth:`commit`, made under
-        the lock.  It is safe in place: the slot datapath is functional
-        (every wave, retries and abandoned attempts included, reads the
-        table it was handed and returns a new one), so no attempt still in
-        flight reads the table committed after it."""
+        Made in place under the lock, like every write to the live table:
+        the slot datapath only reads the table it is handed (every
+        attempt, retries and abandoned ones included, writes its own
+        output table), and the live table changes only between waves."""
         with self._lock:
             slot = self._alloc.slot_of(stream_id)
             if slot is None:

@@ -283,8 +283,8 @@ class FaultyDeviceStateStore:
         self._injector = injector
 
     def commit(self, new_table, rows) -> None:
-        """Adopt the wave's updated table, then apply one put-fault draw
-        per stored row (``rows``: the wave's ``(batch_row, stream_id)``
+        """Commit the wave's table, then apply one put-fault draw per
+        stored row (``rows``: the wave's ``(batch_row, stream_id)``
         scatters, in batch-row order)."""
         self._store.commit(new_table, rows)
         for _, sid in rows:

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 from torch.autograd import profiler as _profiler
 
+from repro_torch.backends.slot_graph import ROUTE, SlotGraphs
 from repro_torch.kernels.qlstm_cell import LAUNCH_STAMP
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.metrics import (MetricsSink, WaveRecord,
@@ -258,6 +259,8 @@ class StreamServer:
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         self.config = cfg
+        #: The slot path's CUDA graph engine, on a CUDA session.
+        self._slot_graphs: Optional[SlotGraphs] = None
         self._sessions = sessions
         self.fault_injector = fault_injector
         # Resolve the degradation ladder and build/validate NOW: a bad
@@ -293,6 +296,9 @@ class StreamServer:
             if residency == "device":
                 self._fns = [[(n, s.compiled_stateful_slots(n))
                               for n in ladder] for s in sessions]
+                self._slot_graphs = next((fn for _, fn in self._fns[0]
+                                          if isinstance(fn, SlotGraphs)),
+                                         None)
             else:
                 self._fns = [[(n, s.compiled_stateful(n)) for n in ladder]
                              for s in sessions]
@@ -544,6 +550,8 @@ class StreamServer:
         clean shutdown; also visible in ``health()["leaked_threads"]``)."""
         leaked = self._sched.close(abandon=abandon, timeout=timeout)
         self.guard.close()
+        if self._slot_graphs is not None:
+            self._slot_graphs.release(self.states.table)
         return leaked
 
     def __enter__(self) -> "StreamServer":
@@ -601,6 +609,14 @@ class StreamServer:
             "from_device_bytes": counters.get("state_bytes_from_device", 0),
             "slot_id_bytes": counters.get("slot_id_bytes", 0),
         }
+        # The slot path's CUDA graphs: the engine's lifetime counts, and
+        # the share of this window's waves that replayed a graph.
+        s["slot_graph"] = None
+        if self._slot_graphs is not None:
+            s["slot_graph"] = {
+                **self._slot_graphs.stats(),
+                "replayed_share": (counters.get("slot_graph_replay", 0)
+                                   / s["waves"] if s["waves"] else None)}
         s["health"] = self.health()
         if s["waves"]:
             sess = self._sessions[0]
@@ -677,7 +693,6 @@ class StreamServer:
         LAUNCH_STAMP.t = float("nan")
         with _stage(traced, "serving.prepare"):
             device = self._sessions[sess_idx].device
-            x = torch.as_tensor(wave.x, device=device)
             if device_state:
                 # Slot path: the carries never leave the table — only two
                 # (B,) int32 slot-id vectors cross to the device.  The
@@ -687,19 +702,20 @@ class StreamServer:
                 g, s, reset, rows, evicted = self._gather_slots(wave)
                 self.metrics.count("slot_id_bytes",
                                    int(g.nbytes + s.nbytes))
-                # The slot datapath is functional: it reads the committed
-                # table and returns a new one, never writing the live
-                # table.  That is what makes an attempt the guard abandoned
-                # at its timeout safe (its kernel may still run beside the
-                # retry on CUDA) and what lets the fault injector's
-                # corrupt_slot write the committed table in place.
-                outcome = self.guard.run(fns, x, self.states.table,
-                                         torch.as_tensor(g, device=device),
-                                         torch.as_tensor(s, device=device))
+                # The slot datapath only reads the live table: every
+                # attempt writes an output table of its own, and the live
+                # table changes only at commit, after success.  That is
+                # what makes an attempt the guard abandoned at its timeout
+                # safe (its kernel may still run beside the retry on CUDA).
+                # x and the ids go as host arrays: the engine stages them.
+                ROUTE.last = None
+                outcome = self.guard.run(fns, wave.x, self.states.table, g, s)
             elif self.config.stateful:
+                x = torch.as_tensor(wave.x, device=device)
                 gathered, reset = self._gather(wave, device)
                 outcome = self.guard.run(fns, x, gathered)
             else:
+                x = torch.as_tensor(wave.x, device=device)
                 reset = [False] * len(wave.slots)
                 outcome = self.guard.run(fns, x)
         if not outcome.ok:
@@ -716,12 +732,15 @@ class StreamServer:
                     else float("nan"))
         if device_state:
             y, new_table = outcome.value
+            if ROUTE.last is not None:      # the slot graphs' route
+                self.metrics.count("slot_graph_" + ROUTE.last)
         elif self.config.stateful:
             y, new_state = outcome.value
         else:
             y = outcome.value
         with _stage(traced, "serving.sync"):
-            y = y.cpu().numpy()
+            # The graph path hands y back on the host already.
+            y = (y.cpu() if y.is_cuda else y).numpy()
         t_host = time.perf_counter()
         with _stage(traced, "serving.emit"):
             if device_state:
