@@ -4,23 +4,23 @@
 --trace <0|1>``, from the root of a checkout.  Everything a cell needs
 is found by name from ``BENCHMARK.json``: its configuration file, the
 modules the configuration names (``"system"``: ``perfbench/systems/
-<name>.py``, which builds the system under test; ``"reference"``:
-``perfbench/reference/<name>.py``, the plain reference), its traffic mix
-(``perfbench/traffic/<mix>.json``) and the arrival process the mix names
-(``perfbench/arrivals/<name>.py``), and a reader for each of its metrics
-(``perfbench/metrics/<metric>.py``, or the file of the part of the name
-before its first dot).  A run:
+<name>.py``, which builds the system under test and makes its requests;
+``"reference"``: ``perfbench/reference/<name>.py``, the plain
+reference), its traffic mix (``perfbench/traffic/<mix>.json``) and the
+arrival process the mix names (``perfbench/arrivals/<name>.py``), and a
+reader for each of its metrics (``perfbench/metrics/<metric>.py``, or
+the file of the part of the name before its first dot).  A run:
 
 1. builds the system from the configuration with weights drawn from the
-   seed, checks its plan, starts its ``StreamServer`` and warms it
-   (set-up, timed as ``setup_s``);
+   seed, starts its server and warms it, and draws the requests from the
+   seed (set-up, timed as ``setup_s``);
 2. drives the mix through ``submit``/``poll`` for ``--seconds``
    (the measured window), and with ``--trace 1`` for a further traced
    sub-window under the profiler (made again, up to ``TRACE_TRIES``
    times, while the trace is not whole);
 3. stops sending, waits for every answer (up to a minute), reads the
    peak device memory and closes the server;
-4. runs the plain reference over every window sent and compares each
+4. runs the plain reference over every request sent and compares each
    answer with it (``perfbench/compare.py``);
 5. prints the comparison's numbers beside their limits on standard
    error, and one JSON line on standard output.
@@ -43,7 +43,7 @@ import numpy as np
 from perfbench import compare
 from perfbench.client import OpenLoop
 from perfbench.trace import Profiler, Spans, TraceResult
-from perfbench.traffic import Mix, Windows
+from perfbench.traffic import Mix
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -73,18 +73,21 @@ class Spec:
                 return json.loads((self.root / c["file"]).read_text())
         raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
-    def mix(self, name: str, **overrides) -> Mix:
+    def mix(self, name: str, system=None, **overrides) -> Mix:
         """The traffic mix ``name``, with any field replaced by
         ``overrides`` (the knee sweep's rates), checked against the
-        parameters its arrival process reads."""
+        parameters its arrival process reads and those the ``system``
+        module's requests read (its ``PARAMS``, where it has them)."""
         path = self.root / "perfbench" / "traffic" / f"{name}.json"
         mix = Mix.from_dict(name, {**json.loads(path.read_text()),
                                    **overrides})
-        want = set(self.module("arrivals", mix.arrivals).PARAMS)
-        if set(mix.params) != want:
-            raise ValueError(f"traffic {name}: arrivals {mix.arrivals!r} "
-                             f"reads {sorted(want)}, the mix gives "
-                             f"{sorted(mix.params)}")
+        arrivals = set(self.module("arrivals", mix.arrivals).PARAMS)
+        requests = set(getattr(system, "PARAMS", ()))
+        if set(mix.params) != arrivals | requests:
+            raise ValueError(
+                f"traffic {name}: arrivals {mix.arrivals!r} reads "
+                f"{sorted(arrivals)} and the system's requests read "
+                f"{sorted(requests)}, the mix gives {sorted(mix.params)}")
         return mix
 
     def module(self, kind: str, name: str):
@@ -123,9 +126,11 @@ class Run:
     ``k``, ``due``, ``sub`` (``submit`` called), ``ret`` (it returned)
     and ``done`` (result polled; NaN if none), all on the host clock;
     ``ok``: answered without error.  The measured window is ``[t0,
-    t1)``; ``counters`` are the server's lifetime counters read at
-    ``t1``; ``trace`` the traced sub-window (``--trace 1``), with
-    ``trace_counters`` read at its ends."""
+    t1)``; ``counters`` are the server's lifetime counters (the system's
+    ``counters``) read at ``t1``; ``trace`` the traced sub-window
+    (``--trace 1``), with ``trace_counters`` read at its ends.
+    ``dims``, ``bits`` and ``ops_per_window`` are the system's, or None
+    where it does not give them."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -165,24 +170,16 @@ class GcPauses:
         gc.callbacks.remove(self._cb)
 
 
-def _counters(server) -> Dict:
-    snap = server.metrics._snapshot()
-    return {"waves": snap["n_waves"], "samples": snap["n_samples"],
-            "padded_slots": snap["n_padded_slots"],
-            "deadline_flushes": snap["n_deadline_flushes"],
-            "compute_s_total": snap["compute_s_total"]}
-
-
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              *, device: str = "cuda", root: Path = ROOT,
              t_start: Optional[float] = None, fault=None,
              mix_overrides: Optional[Dict] = None):
     """One run of ``workload``: ``(result, run)``, the result dict (the
     comparison's ``checks`` last) and the :class:`Run` its metrics were
-    read from.  ``fault``, for the harness's own
-    tests, wraps the program's datapath callables to break the timed
-    path underneath; ``mix_overrides`` replaces fields of the traffic
-    mix (the knee sweep, and small runs in the tests)."""
+    read from.  ``fault``, for the harness's own tests, is handed to the
+    system's ``inject`` to break the timed path underneath;
+    ``mix_overrides`` replaces fields of the traffic mix (the knee sweep,
+    and small runs in the tests)."""
     import torch
 
     t_start = time.perf_counter() if t_start is None else t_start
@@ -191,11 +188,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     cfg = spec.config(wl["config"])
     system = spec.module("systems", cfg["system"])
     reference = spec.module("reference", cfg["reference"])
-    mix = spec.mix(wl["traffic"], **(mix_overrides or {}))
+    mix = spec.mix(wl["traffic"], system, **(mix_overrides or {}))
     arrivals = spec.module("arrivals", mix.arrivals)
     metrics = spec.metrics(workload, trace)
     readers = {m["name"]: spec.reader(m["name"]) for m in metrics}
-    m, h, layers, t, p = system.dims(cfg)
+    given = lambda name: (getattr(system, name)(cfg)
+                          if hasattr(system, name) else None)
     cuda = torch.device(device).type == "cuda"
 
     phases = [("imports", time.perf_counter())]
@@ -204,20 +202,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     session, server = system.build_server(cfg, weights, mix, device)
     phases.append(("session and server", time.perf_counter()))
     if fault is not None:
-        server._fns = [[(n, fault(fn)) for n, fn in per] for per in server._fns]
+        system.inject(server, fault)
     system.warm(server, mix, cfg, device)
     phases.append(("warm waves", time.perf_counter()))
-    windows = Windows(seed, mix.streams, t, m)
+    windows = system.payload(cfg, mix, seed)
     spans = Spans()
-    prof = Profiler(spans, cuda=cuda)
+    prof = Profiler(spans, cuda=cuda,
+                    datapath=getattr(system, "DATAPATH", None),
+                    labels=getattr(system, "SPANS", ()))
     if trace:
-        spans.instrument(server)
+        if hasattr(system, "instrument"):
+            system.instrument(spans, server)
         prof.warm()
     total_s = seconds + (TRACE_TRIES * TRACE_S + 0.5 if trace else 0.0)
     sched = arrivals.schedule(mix, seed, total_s)
     for kk in range(int(sched.k.max()) + 1 if len(sched.k) else 0):
         windows.round(kk)
-    loop = OpenLoop(server, mix, windows, p, sched, spans)
+    loop = OpenLoop(server, mix, windows, system.answer_width(cfg), sched,
+                    spans)
 
     t0 = time.perf_counter()
     phases.append(("traffic", t0))
@@ -226,18 +228,19 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     t1 = t0 + seconds
     with GcPauses() as gc_pauses:
         loop.run_until(t1)
-    counters = _counters(server)
+    counters = system.counters(server)
     result_trace: Optional[TraceResult] = None
     trace_counters, refused = None, []
     if trace:
         for _ in range(TRACE_TRIES):
-            c_a = _counters(server)
+            c_a, n_a = system.counters(server), loop.answered
             t_a = prof.start()
             loop.run_until(t_a + TRACE_S)
             result_trace = prof.stop()
-            trace_counters = (c_a, _counters(server))
-            why = result_trace.fault(trace_counters[1]["waves"]
-                                     - c_a["waves"])
+            trace_counters = (c_a, system.counters(server))
+            why = result_trace.fault(
+                trace_counters[1]["waves"] - c_a["waves"]
+                if prof.datapath else 0, loop.answered - n_a)
             if why is None:
                 break
             refused.append(why)
@@ -256,13 +259,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     stream, k, due, sub, ret, done, y, ok = loop.arrays()
+    fmt = given("fmt_bits")
     run = Run(t0=t0, t1=t1, stream=stream, k=k, due=due, sub=sub, ret=ret,
               done=done, ok=ok, counters=counters, mix=mix, config=cfg,
-              batch=mix.batch, dims=(m, h, layers, t, p),
-              bits=system.fmt_bits(cfg)[1], trace=result_trace,
+              batch=mix.batch, dims=given("dims"),
+              bits=fmt[1] if fmt else None, trace=result_trace,
               trace_counters=trace_counters, trace_refused=refused,
               setup_s=setup_s, gc_events=gc_pauses.events,
-              ops_per_window=system.ops_per_window(cfg))
+              ops_per_window=given("ops_per_window"))
     values = {}
     for mt in metrics:
         v = readers[mt["name"]].read(run)
@@ -322,10 +326,12 @@ def report(run) -> None:
     say(f"collections in the window: {len(run.gc_events)}, "
         f"{len(full)} of generation 2 taking {sum(full):.4f} s")
     if run.trace is not None:
-        w0 = wave_ms({"waves": 0, "compute_s_total": 0.0}, run.counters)
-        say(f"wave (ms): measured window {w0!r}, traced sub-window "
-            f"{wave_ms(*run.trace_counters)!r}; traced sub-windows refused "
-            f"{len(run.trace_refused)}: {run.trace_refused}")
+        if "compute_s_total" in run.counters:
+            w0 = wave_ms({"waves": 0, "compute_s_total": 0.0}, run.counters)
+            say(f"wave (ms): measured window {w0!r}, traced sub-window "
+                f"{wave_ms(*run.trace_counters)!r}")
+        say(f"traced sub-windows refused {len(run.trace_refused)}: "
+            f"{run.trace_refused}")
 
 
 def forbidden_modules() -> List[str]:

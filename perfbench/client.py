@@ -26,7 +26,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from perfbench.traffic import Mix, Schedule, Windows
+from perfbench.traffic import Mix, Schedule
 
 clock = time.perf_counter
 NAN = float("nan")
@@ -35,9 +35,11 @@ TICK_S = 0.0005
 
 
 class OpenLoop:
-    """Arrivals of ``schedule``, due ``t0 + schedule.due``."""
+    """Arrivals of ``schedule``, due ``t0 + schedule.due``: window ``k``
+    of stream ``s`` is ``windows.round(k)[s]`` (the system's
+    ``payload``), and its answer ``p`` floats."""
 
-    def __init__(self, server, mix: Mix, windows: Windows, p: int,
+    def __init__(self, server, mix: Mix, windows, p: int,
                  schedule: Schedule, spans=None):
         self.server, self.windows, self.p, self.spans = server, windows, p, spans
         self.stream, self.k = array("q"), array("q")

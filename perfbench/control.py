@@ -4,13 +4,14 @@ configuration states, must come out as not correct.
 
     python3 perfbench/control.py --workload <name> --seeds 1,2,3 --seconds 10
 
-For each seed it makes the windows a run of the cell would send in
-``--seconds`` (its mix's arrivals), runs the configuration's reference
-once as the configuration states it and once a step below
-(``predict(..., lower=True)``: for ``reference/qlstm.py``, ``(a/2,
-b/2)``, int8 codes for int16 ones, int4 for int8), and prints the
-comparison's numbers for the second against the first.  The benchmark's
-own runs never run it.
+For each seed it makes the requests a run of the cell would send in
+``--seconds`` (its mix's arrivals, the system's ``payload``), runs the
+configuration's reference once as the configuration states it and once
+a step below (``predict(..., lower=True)``: for ``reference/qlstm.py``,
+``(a/2, b/2)``, int8 codes for int16 ones, int4 for int8), and prints
+the comparison's numbers for the second, as the program would answer
+(the reference's ``answers``, else ``compare.answers``), against the
+first.  The benchmark's own runs never run it.
 """
 
 import argparse
@@ -23,7 +24,6 @@ sys.path[0:1] = [str(ROOT), str(ROOT / "src")]
 
 from perfbench import compare  # noqa: E402
 from perfbench.bench import Spec  # noqa: E402
-from perfbench.traffic import Windows  # noqa: E402
 
 
 def readings(workload: str, seed: int, seconds: float, device="cpu",
@@ -32,18 +32,17 @@ def readings(workload: str, seed: int, seconds: float, device="cpu",
     cfg = spec.config(spec.workload(workload)["config"])
     system = spec.module("systems", cfg["system"])
     reference = spec.module("reference", cfg["reference"])
-    mix = spec.mix(spec.workload(workload)["traffic"],
+    mix = spec.mix(spec.workload(workload)["traffic"], system,
                    **(mix_overrides or {}))
-    m, _, _, t, _ = system.dims(cfg)
     sched = spec.module("arrivals", mix.arrivals).schedule(mix, seed, seconds)
     stream, k = sched.stream, sched.k
-    x = Windows(seed, mix.streams, t, m).take(stream, k)
+    x = system.payload(cfg, mix, seed).take(stream, k)
     w = system.make_weights(cfg, seed, device)
-    want, frac = reference.predict(cfg, w, stream, k, x, device=device)
-    ctrl, frac_lo = reference.predict(cfg, w, stream, k, x, device=device,
-                                      lower=True)
+    want = reference.predict(cfg, w, stream, k, x, device=device)
+    ctrl = reference.predict(cfg, w, stream, k, x, device=device, lower=True)
+    y = getattr(reference, "answers", compare.answers)(*ctrl)
     return {"workload": workload, "seed": seed, "windows": len(stream),
-            **compare.readings(ctrl * 2.0 ** -frac_lo, want, frac)}
+            **compare.read(reference, y, want)}
 
 
 def main() -> int:

@@ -56,10 +56,7 @@ def point(workload: str, rate: float, seconds: float, seed: int) -> dict:
         "unanswered_share_at_close": float(np.count_nonzero(
             (run.sub < run.t1) & ~(run.done < run.t1)) / max(1, due.sum())),
         "answered_per_s": run.done_between(run.t0, run.t1) / run.window_s,
-        "occupancy": run.counters["samples"] / max(1, run.counters["waves"]
-                                                   * run.batch),
-        "wave_ms": 1e3 * run.counters["compute_s_total"]
-        / max(1, run.counters["waves"]),
+        "counters": run.counters,
         "failed": out["failed"], "correct": out["correct"],
     }
 

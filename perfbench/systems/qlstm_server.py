@@ -9,8 +9,12 @@ and how the float master weights are drawn (``weights``).  The weights
 are drawn from the seed on the run's device and handed both to the
 program and to the reference.
 
-A system module gives ``dims``, ``fmt_bits``, ``ops_per_window``,
-``make_weights``, ``build_server`` and ``warm``.
+A system module's interface is listed in ``perfbench/README.md``; this
+one gives all of it: the requests (``payload``: the PeMS-like windows of
+``perfbench/traffic.py``, and ``answer_width``), the server's lifetime
+counters, the spans around its layers and the fault hook, and for the
+readers of K3's roofline and the whole step's share of the peak
+``dims``, ``fmt_bits`` and ``ops_per_window``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,13 @@ import numpy as np
 import torch
 
 from perfbench import counts
+from perfbench.traffic import Windows
+
+# The host spans ``instrument`` records, in the order an idle gap of the
+# device is put down to them (first match wins); ``DATAPATH`` is the
+# guarded datapath, which a whole trace sees once for each wave counted.
+DATAPATH = "server.datapath"
+SPANS = (DATAPATH, "server.execute", "server.assemble")
 
 
 def dims(cfg: Dict) -> Tuple[int, int, int, int, int]:
@@ -39,6 +50,18 @@ def fmt_bits(cfg: Dict) -> Tuple[int, int]:
 def ops_per_window(cfg: Dict) -> int:
     """The paper's operations for one window (``counts.ops_per_window``)."""
     return counts.ops_per_window(*dims(cfg))
+
+
+def payload(cfg: Dict, mix, seed: int) -> Windows:
+    """The windows a run sends: window ``k`` of each of the mix's
+    streams, (T, M) float32, drawn from the seed."""
+    m, _, _, t, _ = dims(cfg)
+    return Windows(seed, mix.streams, t, m)
+
+
+def answer_width(cfg: Dict) -> int:
+    """Floats in one answer: the dense head's P."""
+    return dims(cfg)[4]
 
 
 def make_weights(cfg: Dict, seed: int, device) -> Dict[str, np.ndarray]:
@@ -123,3 +146,30 @@ def warm(server, mix, cfg: Dict, device) -> None:
     server.reset_metrics()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def counters(server) -> Dict:
+    """The serving layer's lifetime counters (``MetricsSink.snapshot``):
+    waves, windows, padded wave slots, deadline flushes and the waves'
+    summed host time (s)."""
+    snap = server.metrics.snapshot()
+    return {"waves": snap["n_waves"], "samples": snap["n_samples"],
+            "padded_slots": snap["n_padded_slots"],
+            "deadline_flushes": snap["n_deadline_flushes"],
+            "compute_s_total": snap["compute_s_total"]}
+
+
+def instrument(spans, server) -> None:
+    """Spans around the compute thread's wave (``server.execute``), the
+    assembler's wave (``server.assemble``) and the guarded datapath
+    within a wave (``DATAPATH``), by the server's own method names: a
+    program that renames one fails the run at set-up."""
+    spans.wrap(server._sched, "_execute", "server.execute")
+    spans.wrap(server._sched, "_build_wave", "server.assemble")
+    spans.wrap(server.guard, "run", DATAPATH)
+
+
+def inject(server, fault) -> None:
+    """Break the timed path underneath: every datapath callable of every
+    session on the server's ladder is replaced by ``fault(fn)``."""
+    server._fns = [[(n, fault(fn)) for n, fn in per] for per in server._fns]

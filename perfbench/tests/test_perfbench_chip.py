@@ -26,7 +26,7 @@ def test_one_short_cell_on_the_card():
     assert out["correct"] and out["failed"] == 0
     assert out["device"]["platform"] == "gpu"
     assert out["device"]["kind"] == torch.cuda.get_device_name(0)
-    assert {"window_p90_ms", "setup_s"} <= set(out["metrics"])
+    assert {"windows_per_s", "setup_s"} <= set(out["metrics"])
 
 
 def test_no_card_no_result(tmp_path, monkeypatch):

@@ -4,22 +4,23 @@ host spans recorded around the server's layers.
 The profiler records every device operation in the process (kernels,
 copies, fills), whichever thread launched it.  Two annotations made on
 the client's thread map the profiler's clock onto the host's.  While the
-traced sub-window runs, :class:`Spans` records when the server's
-compute thread executes a wave (``server.execute``) and within it the
-guarded datapath (``server.datapath``), when its assembler builds a wave
-(``server.assemble``), and when the client submits and handles polled
-results; each idle gap of the device is then put down to what the host
-was doing at its middle, or to ``waiting`` where no span was open (every
-thread waiting for a deadline, an arrival or a result).  Nothing is
-written to disk.
+traced sub-window runs, :class:`Spans` records the spans the system
+module's ``instrument`` wraps around its server's layers (``SPANS``:
+for ``qlstm_server``, the compute thread executing a wave, within it
+the guarded datapath, and the assembler building a wave), and when the
+client submits and handles polled results; each idle gap of the device
+is then put down to what the host was doing at its middle, the system's
+spans first in their order, or to ``waiting`` where no span was open
+(every thread waiting for a deadline, an arrival or a result).  Nothing
+is written to disk.
 
-A trace is read only where it is whole (:meth:`TraceResult.fault`):
-every guarded datapath span inside the sub-window overlaps some device
-operation, and the spans saw the waves the server counted.  The spans
-wrap the server's own methods by name (``_sched._execute``,
-``_sched._build_wave``, ``guard.run``): a program that renames one fails
-the run at set-up, and one that moves its waves elsewhere fails the
-second check.
+A trace is read only where it is whole (:meth:`TraceResult.fault`).
+For a system that names its datapath span (``DATAPATH``): every
+datapath span inside the sub-window overlaps some device operation, and
+the spans saw the waves the server counted, so a program that moves
+its waves away from what ``instrument`` wraps fails the run.  For a
+system with no spans: device operations were seen where requests were
+answered.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ from typing import Dict, List, Optional, Tuple
 clock = time.perf_counter
 
 MARK = "perfbench.mark"
-# Which host activity an idle gap is put down to, first match wins.
-GAP_ORDER = ("server.datapath", "server.execute", "server.assemble",
-             "client.submit", "client.poll")
+# The client's own spans, after the system's in the order an idle gap is
+# put down to them.
+CLIENT_SPANS = ("client.submit", "client.poll")
 # How far a device operation may lie outside a datapath span on the host
 # clock (the two clocks are matched at the sub-window's ends only).
 SLACK_S = 0.0005
@@ -65,21 +66,22 @@ class Spans:
 
         setattr(obj, attr, wrapped)
 
-    def instrument(self, server) -> None:
-        self.wrap(server._sched, "_execute", "server.execute")
-        self.wrap(server._sched, "_build_wave", "server.assemble")
-        self.wrap(server.guard, "run", "server.datapath")
-
 
 class TraceResult:
     """What the traced sub-window ``[t_a, t_b]`` (host clock) saw: device
     operations ``(name, start, end)`` on the host clock, their busy
-    seconds, and the host spans."""
+    seconds, and the host spans.  ``datapath``: the label of the system's
+    datapath span (None: the system records none); ``labels``: the
+    system's span labels, in the order idle gaps are put down to them."""
 
     def __init__(self, t_a: float, t_b: float,
                  ops: List[Tuple[str, float, float]],
-                 spans: List[Tuple[str, float, float]], cuda: bool = True):
+                 spans: List[Tuple[str, float, float]], cuda: bool = True,
+                 datapath: Optional[str] = None,
+                 labels: Tuple[str, ...] = ()):
         self.t_a, self.t_b, self.cuda = t_a, t_b, cuda
+        self.datapath = datapath
+        self.gap_order = tuple(labels) + CLIENT_SPANS
         self.ops = sorted(ops, key=lambda o: o[1])
         self.spans = spans
         self.busy_intervals = _union([(s, e) for _, s, e in self.ops],
@@ -90,17 +92,23 @@ class TraceResult:
     def window_s(self) -> float:
         return self.t_b - self.t_a
 
-    def fault(self, waves: int) -> Optional[str]:
+    def fault(self, waves: int, answered: int = 0) -> Optional[str]:
         """Why this trace cannot be read, or None.  ``waves``: the waves
-        the server counted in the sub-window.  (Without a card no device
-        operation is traced, and nothing is read from the device.)"""
+        the server counted in the sub-window; ``answered``: the requests
+        answered in it.  (Without a card no device operation is traced,
+        and nothing is read from the device.)"""
+        if self.datapath is None:
+            if self.cuda and answered and not self.ops:
+                return (f"{answered} requests answered in the sub-window, "
+                        f"no device operation traced")
+            return None
         paths = [(s, e) for lab, s, e in self.spans
-                 if lab == "server.datapath" and s >= self.t_a
+                 if lab == self.datapath and s >= self.t_a
                  and e <= self.t_b]
         if waves >= 2 and not paths:
             return (f"the host spans saw none of the {waves} waves the "
                     f"server counted: the program's waves no longer pass "
-                    f"through what trace.Spans.instrument wraps")
+                    f"through what the system's instrument wraps")
         if not self.cuda:
             return None
         missed = sum(1 for s, e in paths if not _overlaps(
@@ -134,12 +142,12 @@ class TraceResult:
         edges = [self.t_a] + [x for iv in self.busy_intervals for x in iv] \
             + [self.t_b]
         by_label = {lab: sorted((s, e) for l2, s, e in self.spans
-                                if l2 == lab) for lab in GAP_ORDER}
+                                if l2 == lab) for lab in self.gap_order}
         for g0, g1 in zip(edges[0::2], edges[1::2]):
             if g1 <= g0:
                 continue
             mid = 0.5 * (g0 + g1)
-            label = next((lab for lab in GAP_ORDER
+            label = next((lab for lab in self.gap_order
                           if _covers(by_label[lab], mid)), "waiting")
             tot[label] = tot.get(label, 0.0) + (g1 - g0)
         return [[n, t] for n, t in
@@ -178,10 +186,14 @@ def _activities(cuda: bool):
 
 class Profiler:
     """``torch.profiler`` over the traced sub-window (device operations
-    only where ``cuda``)."""
+    only where ``cuda``); ``datapath`` and ``labels`` as
+    :class:`TraceResult` takes them."""
 
-    def __init__(self, spans: Spans, cuda: bool = True):
+    def __init__(self, spans: Spans, cuda: bool = True,
+                 datapath: Optional[str] = None,
+                 labels: Tuple[str, ...] = ()):
         self.spans, self.cuda = spans, cuda
+        self.datapath, self.labels = datapath, labels
         self._prof = None
 
     def warm(self) -> None:
@@ -224,4 +236,5 @@ class Profiler:
         ops = [(e.name, to_host(e.time_range.start), to_host(e.time_range.end))
                for e in events if str(e.device_type).endswith("CUDA")]
         return TraceResult(self._m0, m1, ops, list(self.spans.spans),
-                           cuda=self.cuda)
+                           cuda=self.cuda, datapath=self.datapath,
+                           labels=self.labels)
