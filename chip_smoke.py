@@ -5,6 +5,8 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py lfm2`` runs phase 14 alone.)
+
 It builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all started together) and drives the port's two paths: the
 paper's integer LSTM — ``build`` -> ``quantize`` -> ``infer(path="int")``
@@ -220,7 +222,19 @@ phases:
      mixtral-8x7b ``decode_32k --quant-serve --multi-pod``), rendered by
      ``analysis.report``; (e) ``examples/torch/quickstart.py`` (K1).  The
      dry run's numbers are modelled with the H100 data sheet's rates, not
-     measured.
+     measured;
+ 14. LFM2-8B-A1B at its published widths and depth (``configs/
+     lfm2_8b_a1b.py``: 24 layers, 18 short-conv and 6 GQA blocks, 22 MoE
+     layers of 32 experts top 4; bf16 weights drawn from seed 0 by the
+     benchmark's ``perfbench/systems/lfm2_sessions.py``):
+     the MoE's grouped expert products against one product per expert, a
+     2048-token prefill, ragged extend chunks into a 3-row session table
+     and decode steps through ``forward_decode``, each row's last logits
+     against the plain reference (``perfbench/reference/lfm2.py``, f32,
+     TF32 off, layer by layer) as a relative L2 gap; waves of 32 turns
+     through ``SessionServer``, timed; and
+     ``launch.serve --arch lfm2-8b-a1b --preset full`` (decode through the
+     cache over f32 master weights).
 
 Any failure raises and exits non-zero.  The second-to-last line of
 output is the ``{"kernels": [...]}`` record, the last one
@@ -3116,6 +3130,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    if sys.argv[1:] == ["lfm2"]:
+        phase14_lfm2(dev, card)
+        return 0
 
     # -- phase 1: card, versions, build ------------------------------------
     t0 = time.perf_counter()
@@ -3599,12 +3616,130 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
 
+    torch.cuda.empty_cache()
+    phase14_lfm2(dev, card)
+
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase14_lfm2(dev, card):
+    """Phase 14 (the module docstring): LFM2-8B-A1B on the card."""
+    from perfbench.reference import lfm2 as R
+    from perfbench.systems import lfm2_sessions
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import SessionServer
+    t_phase = time.perf_counter()
+    # the benchmark's configuration file (the published keys, which the
+    # reference reads) and its weights, drawn as its cell draws them
+    hf = json.loads((ROOT / "perfbench/configs/lfm2-8b-a1b.json").read_text())
+    cfg = lfm2_sessions.model_config(hf)
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    # (a) grouped expert products against one product per expert
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m = cfg.moe
+    wg, wu = (torch.randn((m.num_experts, cfg.d_model, m.d_ff), generator=gen,
+                          device=dev, dtype=torch.bfloat16) * cfg.d_model ** -0.5
+              for _ in range(2))
+    wd = torch.randn((m.num_experts, m.d_ff, cfg.d_model), generator=gen,
+                     device=dev, dtype=torch.bfloat16) * m.d_ff ** -0.5
+    counts = torch.bincount(torch.randint(0, m.num_experts, (4 * 4096,),
+                                          generator=gen, device=dev),
+                            minlength=m.num_experts)
+    counts[3] = 0
+    xs = torch.randn((int(counts.sum()), cfg.d_model), generator=gen,
+                     device=dev, dtype=torch.bfloat16)
+    act = torch.nn.functional.silu
+    got = MOE.expert_products(xs, counts, wg, wu, wd, act)
+    want = MOE.expert_products(xs.float(), counts, wg.float(), wu.float(),
+                               wd.float(), act)
+    log(f"phase 14: MoE products over {len(xs)} claims: grouped products' "
+        f"relative gap to f32 per-expert products "
+        f"{rel(got, want):.3e}; grouped {cuda_ms(lambda: MOE.expert_products(xs, counts, wg, wu, wd, act), 20):.4f} ms on {card}")
+    check(rel(got, want) < 2e-2, "grouped expert products disagree")
+    del wg, wu, wd, xs, got, want
+    # (b)-(c) prefill, ragged extend chunks and decode against the reference
+    R.exact()
+    params = lfm2_sessions.make_weights(hf, 0, dev)["params"]
+    rng = np.random.default_rng(14)
+    seqs = [rng.integers(0, cfg.vocab_size, n) for n in (2048, 1300, 4051)]
+    with torch.inference_mode():
+        lp = T.forward_prefill(params, {"tokens": torch.as_tensor(
+            seqs[0][None], device=dev)}, cfg)[0, 0]
+        lr = R.forward(hf, params, seqs[0], [2047], dev)[0]
+        e_pre = rel(lp, lr)
+        table = T.init_cache(cfg, 3, 8192, device=dev)
+        cut = [(1000, 300, 4000), (1048, 1000, 51)]
+        at = [0, 0, 0]
+        for chunk in cut:
+            toks = np.concatenate([s[a:a + n] for s, a, n in zip(seqs, at, chunk)])
+            logits = T.forward_extend(params, table, {
+                "tokens": torch.as_tensor(toks, device=dev), "rows": [0, 1, 2],
+                "starts": at, "lens": list(chunk)}, cfg)
+            at = [a + n for a, n in zip(at, chunk)]
+        e_ext = [rel(logits[r], R.forward(hf, params, s[:a], [a - 1], dev)[0])
+                 for r, (s, a) in enumerate(zip(seqs, at))]
+        check(at == [2048, 1300, 4051], f"extend chunks end at {at}")
+        step = 4051
+        for _ in range(4):
+            nxt = rng.integers(0, cfg.vocab_size, 3)
+            seqs = [np.r_[s[:step if r == 2 else len(s)], t]
+                    for r, (s, t) in enumerate(zip(seqs, nxt))]
+            # rows 0 and 1 stop at their extend lengths; decode runs at row
+            # 2's position, so rows 0/1 are checked through extend above
+            logits, table = T.forward_decode(params, table, {
+                "tokens": torch.as_tensor(nxt[:, None], device=dev),
+                "cache_pos": step}, cfg)
+            step += 1
+        e_dec = rel(logits[2, 0], R.forward(hf, params, seqs[2], [step - 1],
+                                            dev)[0])
+    log(f"phase 14: LFM2-8B-A1B bf16 against the f32 reference (extend's "
+        f"packed flash route), relative L2 gap of the last logits: prefill T=2048 {e_pre:.4e}; extend chunks "
+        f"{cut} {[f'{e:.4e}' for e in e_ext]}; after 4 decode steps at "
+        f"4051.. {e_dec:.4e} on {card}")
+    check(max(e_pre, e_dec, *e_ext) < 0.25, "LFM2 disagrees with its reference")
+    del table, logits
+    torch.cuda.empty_cache()
+    # (d) waves of 32 turns through the session server
+    srv = SessionServer(params, cfg, max_sessions=32, max_positions=8192,
+                        batch=32, deadline_s=0.02, device=dev)
+    hist = [rng.integers(0, cfg.vocab_size, int(n))
+            for n in rng.integers(512, 4097, 32)]
+    for s, h in enumerate(hist):
+        srv.submit(s, h)
+    srv.flush()
+    srv.poll()
+    srv.restart_numbering()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    waves = 8
+    for _ in range(waves):
+        for s in range(32):
+            srv.submit(s, rng.integers(0, cfg.vocab_size, int(np.rint(
+                np.exp(rng.uniform(np.log(32), np.log(512)))))))
+        srv.flush()
+    wall = time.perf_counter() - t0
+    c = srv.counters()
+    srv.close()
+    log(f"phase 14: SessionServer, {waves} waves of 32 turns ({c['tokens']} "
+        f"tokens, contexts from 512-4096): {1e3 * wall / waves:.2f} ms a wave "
+        f"back to back, {c['tokens'] / wall:.0f} tokens/s, {32 * waves / wall:.1f} "
+        f"turns/s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
+    del srv, params
+    torch.cuda.empty_cache()
+    # (e) decode through the cache, the serving launcher
+    toks, tps, lines = run_serve(serve, ["--arch", "lfm2-8b-a1b", "--preset",
+                                         "full", "--gen", "8"])
+    log(f"phase 14: {lines[-2]} on {card}")
+    check(np.isfinite(toks).all(), "serve --arch lfm2-8b-a1b")
+    log(f"phase 14: done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def phases_11_to_13(lm_mesh, lm_train, kernels, rg, mods, session, layer_mods,

@@ -1,6 +1,8 @@
 """--arch config registry + reduced (smoke-test) config derivation —
-counterpart of ``repro/configs/__init__.py``: the same eleven
-architectures under the same names.
+counterpart of ``repro/configs/__init__.py``: the reference's eleven
+architectures under the same names (``REFERENCE_ARCHS``, which tests
+hold against the JAX package), and the port's own LFM2-8B-A1B, which
+tests hold against its plain reference ``perfbench/reference/lfm2.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from repro_torch.configs.base import (AttnConfig, ModelConfig, MoEConfig,  # noq
 from repro_torch.configs.codeqwen15_7b import CONFIG as _codeqwen
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma27
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
+from repro_torch.configs.lfm2_8b_a1b import CONFIG as _lfm2
 from repro_torch.configs.lstm_pems import CONFIG as _lstm
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
 from repro_torch.configs.musicgen_medium import CONFIG as _musicgen
@@ -34,8 +37,14 @@ ARCH_CONFIGS = {
     "recurrentgemma-2b": _rg,
     "rwkv6-7b": _rwkv,
     "lstm-pems": _lstm,
+    "lfm2-8b-a1b": _lfm2,
 }
 
+#: The architectures the JAX package has, in its order.
+REFERENCE_ARCHS = [k for k in ARCH_CONFIGS if k != "lfm2-8b-a1b"]
+#: The LM architectures the JAX package has.
+REFERENCE_LM_ARCHS = [k for k in REFERENCE_ARCHS if k != "lstm-pems"]
+#: Every LM architecture the port serves.
 ASSIGNED_ARCHS = [k for k in ARCH_CONFIGS if k != "lstm-pems"]
 
 
@@ -53,6 +62,10 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         vocab_size=128,
         remat="none",
     )
+    if cfg.layer_types is not None:
+        # one dense and three MoE layers, conv and attention in both
+        kw.update(n_layers=4, layer_types=("conv", "attn", "conv", "attn"),
+                  num_dense_layers=1)
     if cfg.family == "hybrid":
         kw["n_layers"] = 4  # one (rec,rec,attn) period + 1 tail rec
         kw["recurrent"] = dataclasses.replace(cfg.recurrent, lru_width=64)
@@ -62,8 +75,9 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
                                          lora_w=8, chunk=8)
         kw["n_heads"] = 4
     if cfg.moe is not None:
-        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=4, top_k=2,
-                                        d_ff=96)
+        e, k, f = (8, 4, 48) if cfg.moe.router == "sigmoid" else (4, 2, 96)
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=e, top_k=k,
+                                        d_ff=f)
     if cfg.attn is not None and "attn" not in kw:
         sec = (2, 3, 3) if cfg.attn.mrope_sections else None
         kw["attn"] = dataclasses.replace(

@@ -32,6 +32,7 @@ class AttnConfig:
     attn_softcap: Optional[float] = None              # gemma2: 50.0
     query_scale: Optional[float] = None               # gemma2-27b override
     sinusoidal: bool = False                          # musicgen positions
+    qk_norm: bool = False                             # lfm2: per-head RMSNorm on q, k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +42,11 @@ class MoEConfig:
     d_ff: int
     capacity_factor: float = 1.25
     expert_parallel: bool = False
+    # "softmax": the reference's router and capacity dispatch; "sigmoid":
+    # LFM2's, the top-k chosen on sigmoid scores plus a per-expert bias
+    # that only selects, the gates the unbiased scores renormalised, and
+    # a dropless dispatch that computes every claim and only the claims.
+    router: str = "softmax"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +97,14 @@ class ModelConfig:
     remat: str = "full"          # full: training checkpoints each layer (period); none
     sharding_overrides: Tuple[Tuple[str, Optional[str]], ...] = ()
     notes: str = ""
+    # Per-layer block kinds that follow no period (LFM2: "conv" | "attn");
+    # params are then one list entry per layer.  ``num_dense_layers``
+    # leading layers take the dense MLP of width ``d_ff``, the rest the
+    # MoE of ``moe.d_ff``.  ``conv_width``: the short conv's taps.
+    layer_types: Optional[Tuple[str, ...]] = None
+    num_dense_layers: int = 0
+    conv_width: int = 0
+    norm_eps: float = 1e-6
 
     @property
     def q_dim(self) -> int:
@@ -108,13 +122,20 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer block kind (attention/recurrent), resolved from family."""
+        """Per-layer block kind (attention/recurrent/conv), resolved from
+        ``layer_types`` where given, else from family."""
+        if self.layer_types is not None:
+            return tuple(self.layer_types)
         if self.family == "ssm":
             return ("rwkv",) * self.n_layers
         if self.family == "hybrid":
             pat = self.recurrent.block_pattern
             return tuple(pat[i % len(pat)] for i in range(self.n_layers))
         return ("attn",) * self.n_layers
+
+    def moe_layer(self, i: int) -> bool:
+        """Whether layer ``i`` takes the MoE (else the dense MLP)."""
+        return self.moe is not None and i >= self.num_dense_layers
 
     def layer_windows(self, seq_len: int) -> Tuple[int, ...]:
         """Effective attention window per attention layer.  A window >=

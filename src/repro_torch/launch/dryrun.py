@@ -328,6 +328,10 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
            "chips": chips, "kind": shape.kind, "modelled": True,
            "device_model": DEVICE_MODEL}
     ok, why = shape_applicable(cfg, shape)
+    if ok and cfg.moe is not None and cfg.moe.router == "sigmoid":
+        ok, why = False, ("skip: LFM2's dropless MoE sizes each expert's "
+                          "product from the routing, which fake tensors "
+                          "have no values for")
     if not ok:
         rec["status"] = "skipped"
         rec["reason"] = why

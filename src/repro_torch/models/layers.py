@@ -152,8 +152,10 @@ def init_norm(gen: torch.Generator, cfg: ModelConfig,
     return param(gen, stack + (cfg.d_model,), axes, init=init)
 
 
-def norm_apply(w: Tensor, x: Tensor, cfg: ModelConfig,
-               eps: float = 1e-6) -> Tensor:
+def norm_apply(w: Tensor, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """The config's norm over x's last dim with ``cfg.norm_eps``, in f32,
+    cast back to x's dtype."""
+    eps = cfg.norm_eps
     xf = x.float()
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -230,6 +232,9 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig,
         "wo": param(gen, stack + (h * hd, d), la + ("heads", "embed"),
                     scale=(h * hd) ** -0.5),
     }
+    if cfg.attn and cfg.attn.qk_norm:
+        p["q_norm"] = param(gen, stack + (hd,), la + (None,), init="ones")
+        p["k_norm"] = param(gen, stack + (hd,), la + (None,), init="ones")
     if cfg.attn and cfg.attn.qkv_bias:
         p["bq"] = param(gen, stack + (h, hd), la + ("heads", "head_dim"), init="zeros")
         p["bk"] = param(gen, stack + (kv, hd), la + ("kv_heads", "head_dim"), init="zeros")
@@ -378,6 +383,8 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    if a and a.qk_norm:
+        q, k = qk_norm(p, q, k, cfg)
     if not (a and a.sinusoidal):
         q = apply_rope(q, positions, a.rope_theta, a.mrope_sections)
         k = apply_rope(k, positions, a.rope_theta, a.mrope_sections)
@@ -406,6 +413,11 @@ def attn_apply(p: Dict[str, Any], x: Tensor, positions: Tensor, *,
     out = (_local_attention(attend, q, k, v) if isinstance(q, DTensor)
            else attend(q, k, v))
     return linear(out.reshape(*x.shape[:2], -1), p["wo"], cfg.quant, mode)
+
+
+def qk_norm(p: Dict[str, Any], q: Tensor, k: Tensor, cfg: ModelConfig):
+    """Per-head RMSNorm of q and k over head_dim (LFM2), before RoPE."""
+    return norm_apply(p["q_norm"], q, cfg), norm_apply(p["k_norm"], k, cfg)
 
 
 def _decode_write_attend(attend, slot: int, q: Tensor, k: Tensor, v: Tensor,

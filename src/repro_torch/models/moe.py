@@ -8,6 +8,16 @@ a stable descending sort, so equal router probabilities keep the lower
 expert index first, as ``jax.lax.top_k`` does.
 
 The router softmax stays in fp32 and is never quantised or hardened.
+
+LFM2's MoE (``cfg.moe.router == "sigmoid"``) routes as its published
+code does: f32 logits, sigmoid scores, the top-k chosen on the scores
+plus ``expert_bias`` (selection only), the gates the unbiased scores of
+the chosen experts over their sum (+1e-6; its routed scale is 1).  Its
+dispatch is dropless and computes only
+the claimed (token, expert) rows: the claims sorted by expert, one
+grouped product per weight (``torch._grouped_mm`` for bf16 on the card,
+one product per expert elsewhere), and the gates applied in f32 as the
+claims return to their tokens.
 Experts stored as ``{"q", "s"}`` int8 serve weights are dequantised into
 the expert products (``_deq``), as in the reference; in ``"train"`` mode
 with quantisation on, float experts are fake-quantised (``_fq``) and
@@ -37,7 +47,11 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff, m.num_experts
     la = ("layers",) * len(stack)
+    extra = ({"expert_bias": param(gen, stack + (e,), la + (None,),
+                                   init="zeros")}
+             if m.router == "sigmoid" else {})
     return {
+        **extra,
         "router": param(gen, stack + (d, e), la + ("embed", None)),
         "w_gate": param(gen, stack + (e, d, f), la + ("experts", "embed", "expert_mlp"),
                         scale=d ** -0.5),
@@ -130,11 +144,72 @@ def _combine(out: Tensor, dest: Tensor, gate_vals: Tensor,
     return torch.sum(y * gate_vals.to(y.dtype)[..., None], 2)
 
 
+def route_sigmoid(p: Dict[str, Any], x: Tensor, cfg: ModelConfig):
+    """LFM2's router for tokens x (..., d): (gates (..., k) f32, expert
+    ids (..., k)).  The top-k is a stable descending sort of the biased
+    scores, so equal scores keep the lower expert first."""
+    m = cfg.moe
+    logits = x.float() @ _deq(p["router"], torch.float32)
+    scores = torch.sigmoid(logits)
+    idx = torch.sort(scores + p["expert_bias"].float(), dim=-1,
+                     descending=True, stable=True)[1][..., :m.top_k]
+    gates = torch.gather(scores, -1, idx)
+    return gates / (gates.sum(-1, keepdim=True) + 1e-6), idx
+
+
+def expert_products(xs: Tensor, counts: Tensor, wg: Tensor, wu: Tensor,
+                    wd: Tensor, act) -> Tensor:
+    """The SwiGLU experts over claims ``xs`` (M, d) sorted by expert,
+    ``counts[e]`` of them for expert e: (M, d).  bf16 on the card runs
+    one grouped product per weight with no host sync (and raises where
+    ``torch._grouped_mm`` cannot); elsewhere one product per expert that
+    has claims, with one host sync for the counts."""
+    if xs.is_cuda and xs.dtype == torch.bfloat16:
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        h = act(torch._grouped_mm(xs, wg, offs=offs)) * \
+            torch._grouped_mm(xs, wu, offs=offs)
+        return torch._grouped_mm(h, wd, offs=offs)
+    out = torch.empty_like(xs)
+    at = 0
+    for e, n in enumerate(counts.tolist()):
+        if n:
+            rows = xs[at:at + n]
+            out[at:at + n] = (act(rows @ wg[e]) * (rows @ wu[e])) @ wd[e]
+            at += n
+    return out
+
+
+def moe_dropless(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
+                 claims: Tensor = None) -> Tensor:
+    """LFM2's sigmoid-routed, dropless MoE over tokens x (N, d): (N, d)
+    in x's dtype.  ``claims`` (E,), where given, gains each expert's
+    claims on the device."""
+    m = cfg.moe
+    n, d = x.shape
+    gates, idx = route_sigmoid(p, x, cfg)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=m.num_experts)
+    if claims is not None:
+        claims += counts
+    wg, wu, wd = (_deq(p[k], x.dtype) for k in ("w_gate", "w_up", "w_down"))
+    out = expert_products(x[order // m.top_k], counts, wg, wu, wd,
+                          act_fn(cfg.act, cfg))
+    back = torch.empty_like(order)
+    back[order] = torch.arange(len(order), device=order.device)
+    y = out[back].reshape(n, m.top_k, d).float() * gates[..., None]
+    return y.sum(1).to(x.dtype)
+
+
 def moe_apply(p: Dict[str, Any], x: Tensor, cfg: ModelConfig,
               mode: str = "train") -> Tuple[Tensor, Tensor]:
     """x: (B, T, d) -> (y, aux_loss), aux_loss the Switch-style
-    load-balancing loss E * sum_e(frac_tokens_e * mean_prob_e)."""
+    load-balancing loss E * sum_e(frac_tokens_e * mean_prob_e); LFM2's
+    dropless MoE has none (0)."""
     m = cfg.moe
+    if m.router == "sigmoid":
+        y = moe_dropless(p, x.reshape(-1, x.shape[-1]), cfg)
+        return y.reshape(x.shape), torch.zeros((), device=x.device)
     cap = capacity(cfg, x.shape[1])
     probs, gate_vals, _, top1, _, dest = _routing(p, x, cfg, mode)
     aux = m.num_experts * torch.sum(top1.mean((0, 1)) * probs.mean((0, 1)))

@@ -8,7 +8,10 @@ Composition rules (from ModelConfig), as in the reference:
   * family ssm (RWKV-6) — the rwkv time-mix mixer + channel-mix "MLP";
   * family hybrid (RecurrentGemma) — the (rec, rec, attn) pattern grouped
     into full periods (``groups[j]`` holds pattern position j's leaves
-    with a leading axis over the periods) plus a homogeneous ``tail``.
+    with a leading axis over the periods) plus a homogeneous ``tail``;
+  * per-layer ``cfg.layer_types`` (LFM2: gated short-conv and attention
+    blocks in no period, dense MLPs then MoEs) — ``layers[i]`` holds
+    layer i's own leaves, unstacked.
 
 Under a mesh every entry point takes ``DTensor`` params, batches and
 caches (``launch.serve.cache_shardings``); the embedding lookup is
@@ -30,14 +33,19 @@ Entry points:
   forward_prefill -> last-token logits of a full sequence
   init_cache      -> decode cache (KV bf16 or int8 + scales, rec / rwkv state)
   forward_decode  -> one-token serve step against the cache
+  forward_extend  -> a ragged chunk per row appended to each row's cache
+                     in place, at the row's own position (LFM2)
   quantize_model_params -> W8/W8A8 serve weights (C1 at LM scale)
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
@@ -48,6 +56,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
+from repro_torch.models import short_conv as SC
 from repro_torch.models.modules import param, tree_index, tree_leaves, unbox
 from repro_torch.sharding.partition import PRODUCTION_TP, constrain, place
 
@@ -66,8 +75,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def _init_block(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
-                stack: Tuple[int, ...]):
-    """One block kind's params, stacked over `stack` layers."""
+                stack: Tuple[int, ...], moe: Optional[bool] = None):
+    """One block kind's params, stacked over `stack` layers; ``moe``
+    picks the MoE or the dense MLP (default: MoE where the config has
+    one)."""
     blk: Dict[str, Any] = {
         "ln1": L.init_norm(gen, cfg, stack),
         "ln2": L.init_norm(gen, cfg, stack),
@@ -79,12 +90,14 @@ def _init_block(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
         blk["mixer"] = L.init_attn(gen, cfg, stack)
     elif kind == "rec":
         blk["mixer"] = RG.init_rglru_block(gen, cfg, stack)
+    elif kind == "conv":
+        blk["mixer"] = SC.init_conv_block(gen, cfg, stack)
     elif kind == "rwkv":
         rw = RW.init_rwkv_block(gen, cfg, stack)
         blk["mixer"] = {k: v for k, v in rw.items() if not k.startswith("cm_")}
         blk["mlp"] = {k: v for k, v in rw.items() if k.startswith("cm_")}
         return blk
-    if cfg.moe is not None:
+    if cfg.moe is not None if moe is None else moe:
         blk["mlp"] = MOE.init_moe(gen, cfg, stack)
     else:
         blk["mlp"] = L.init_mlp(gen, cfg, stack)
@@ -107,6 +120,9 @@ def init_model(cfg: ModelConfig,
             raise ValueError("the tail of the block pattern must be homogeneous")
         tree["groups"] = [_init_block(gen, cfg, kind, (full,)) for kind in pat]
         tree["tail"] = [_init_block(gen, cfg, pat[0], (tail,))] if tail else []
+    elif cfg.layer_types is not None:
+        tree["layers"] = [_init_block(gen, cfg, kind, (), cfg.moe_layer(i))
+                          for i, kind in enumerate(cfg.layer_kinds())]
     else:
         tree["blocks"] = _init_block(gen, cfg, cfg.layer_kinds()[0],
                                      (cfg.n_layers,))
@@ -129,7 +145,8 @@ def num_active_params(cfg: ModelConfig) -> int:
         return n
     m = cfg.moe
     per_layer_expert = 3 * cfg.d_model * m.d_ff
-    return n - cfg.n_layers * (m.num_experts - m.top_k) * per_layer_expert
+    moe_layers = sum(cfg.moe_layer(i) for i in range(cfg.n_layers))
+    return n - moe_layers * (m.num_experts - m.top_k) * per_layer_expert
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +156,12 @@ def num_active_params(cfg: ModelConfig) -> int:
 def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
                  positions: Tensor, window: Optional[int] = None,
                  mode: str = "train", state=None, cache_pos=None,
-                 ring_window=None):
+                 ring_window=None, moe: Optional[bool] = None):
     """Residual block: norm -> mixer -> (+), norm -> mlp -> (+).
 
     Returns (x, aux, new_state): aux is the MoE auxiliary loss (0.0 for
-    other blocks), new_state None outside decode."""
+    other blocks), new_state None outside decode.  ``moe`` picks the MoE
+    or the dense MLP (default: MoE where the config has one)."""
     aux = 0.0
     h = L.norm_apply(p["ln1"], x, cfg)
     new_state = None
@@ -161,6 +179,8 @@ def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
             h, new_state = RG.rec_block_apply(p["mixer"], h, cfg, mode, state)
         else:
             h = RG.rec_block_apply(p["mixer"], h, cfg, mode)
+    elif kind == "conv":  # full sequences only; serving goes through extend
+        h, _ = SC.conv_block_apply(p["mixer"], h, cfg, mode)
     elif kind == "rwkv":
         if mode == "decode":
             h, tm_state = RW.time_mix_apply(p["mixer"], h, cfg, mode,
@@ -181,7 +201,7 @@ def _block_apply(p, x: Tensor, kind: str, cfg: ModelConfig, *,
             new_state.update(cm_state)
         else:
             h = RW.channel_mix_apply(p["mlp"], h, cfg, mode)
-    elif cfg.moe is not None:
+    elif cfg.moe is not None if moe is None else moe:
         h, aux = MOE.moe_apply(p["mlp"], h, cfg, mode)
     else:
         h = L.mlp_apply(p["mlp"], h, cfg, mode)
@@ -290,14 +310,20 @@ def _run_blocks(params, h: Tensor, cfg: ModelConfig, positions: Tensor,
         return (checkpoint(fn, *args, use_reentrant=False) if remat
                 else fn(*args))
 
-    def block(p, kind, window):
+    def block(p, kind, window, moe=None):
         def fn(x):
             x, aux, _ = _block_apply(p, x, kind, cfg, positions=positions,
-                                     window=window, mode=mode)
+                                     window=window, mode=mode, moe=moe)
             return x, aux
         return fn
 
     aux_total = 0.0
+    if cfg.layer_types is not None:
+        for i, (p, kind) in enumerate(zip(params["layers"],
+                                          cfg.layer_kinds())):
+            h, aux = run(block(p, kind, None, cfg.moe_layer(i)), h)
+            aux_total = aux_total + aux
+        return h, aux_total
     if cfg.family == "hybrid":
         pat = cfg.recurrent.block_pattern
         full = cfg.n_layers // len(pat)
@@ -399,7 +425,9 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int
     """{name: (shape, dtype, logical_axes)} for the decode cache.
 
     The attention KV cache is bounded by the window when every attention
-    layer is windowed (a ring buffer in decode).  KV is bf16, or int8 with
+    layer is windowed (a ring buffer in decode).  LFM2's short-conv
+    blocks keep their last ``conv_width - 1`` conv inputs (``conv``, bf16)
+    beside the KV of its attention blocks.  KV is bf16, or int8 with
     f32 per-(token, head) scales when ``cfg.quant.quantize_kv``; the conv
     and token-shift states are bf16 and the recurrent states f32, whatever
     the activation dtype.  The KV cache shards its heads over the
@@ -420,6 +448,10 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int
         if cfg.quant.quantize_kv:
             specs["k_scale"] = (kv_shape[:-1], torch.float32, axes[:-1])
             specs["v_scale"] = (kv_shape[:-1], torch.float32, axes[:-1])
+    n_conv = sum(k == "conv" for k in kinds)
+    if n_conv:
+        specs["conv"] = ((n_conv, batch, cfg.conv_width - 1, cfg.d_model),
+                         torch.bfloat16, ("layers", "batch", None, "mlp"))
     n_rec = sum(k == "rec" for k in kinds)
     if n_rec:
         w, cw = cfg.recurrent.lru_width, cfg.recurrent.conv_width
@@ -489,6 +521,12 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
     tokens_or_embeds = batch.get("tokens", batch.get("inputs_embeds"))
     b = tokens_or_embeds.shape[0]
     dev = tokens_or_embeds.device
+    if cfg.layer_types is not None:  # one token a row through extend
+        new_cache = {k: v.clone() for k, v in cache.items()}
+        logits = forward_extend(params, new_cache, {
+            "tokens": batch["tokens"].reshape(-1), "rows": range(b),
+            "starts": [cache_pos] * b, "lens": [1] * b}, cfg)
+        return logits[:, None], new_cache
     positions = (batch["position_ids"] if "position_ids" in batch
                  else torch.full((b, 1), cache_pos, device=dev))
     h = _embed(params, batch, cfg, positions)
@@ -545,6 +583,186 @@ def forward_decode(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
                                        [per[i] for i in range(len(per))], True))
     h = L.norm_apply(params["final_norm"], h, cfg)
     return _logits(params, h, cfg), new_cache
+
+
+def _range(name: str):
+    """A profiler range named ``name`` while a profiler runs, else
+    nothing."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.autograd.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+class ExtendProbe:
+    """What :func:`forward_extend` reports beside its logits: ``claims``
+    (MoE layers, experts) int64 on the device, gaining each layer's
+    claims per expert (no host sync), where given; ``section(name)`` the
+    context around each layer's ``lfm2.conv``/``lfm2.attn`` mixer and
+    ``lfm2.moe``/``lfm2.mlp`` FFN (a profiler range by default)."""
+
+    claims: Optional[Tensor] = None
+
+    def section(self, name: str):
+        return _range(name)
+
+
+def _ragged_meta(rows, starts, lens, positions: int, device,
+                 varlen: bool) -> Dict[str, Any]:
+    """Host-built indices of a ragged chunk, in one copy to the device:
+    each packed token's position (``pos``) and cache row (``at_row``),
+    each row's cache row (``rows_t``) and its last token's packed index
+    (``last``); with ``varlen``, the packed flash call's row offsets
+    (``cu_q``, ``cu_k``) and the flat cache rows of every row's k, v
+    from 0 to its last new position (``kv_at``, over ``positions`` a
+    row)."""
+    rows, starts, lens = (np.asarray(a, np.int64) for a in (rows, starts,
+                                                             lens))
+    if len(rows) != len(set(rows.tolist())):
+        raise ValueError("a row may appear once in an extend call")
+    first = np.r_[0, np.cumsum(lens)[:-1]]
+    pos = np.arange(int(lens.sum())) - np.repeat(first - starts, lens)
+    parts = [pos, np.repeat(rows, lens), rows, first + lens - 1]
+    ctx = starts + lens
+    if varlen:
+        parts += [np.r_[0, np.cumsum(lens)], np.r_[0, np.cumsum(ctx)],
+                  np.concatenate([r * positions + np.arange(c)
+                                  for r, c in zip(rows, ctx)])]
+    cut = np.cumsum([len(t) for t in parts])[:-1]
+    got = torch.as_tensor(np.concatenate(parts),
+                          device=device).tensor_split(cut.tolist())
+    meta = dict(zip(("pos", "at_row", "rows_t", "last"), got),
+                rows=rows.tolist(), starts=starts.tolist(),
+                lens=lens.tolist())
+    if varlen:
+        meta.update(cu_q=got[4].to(torch.int32), cu_k=got[5].to(torch.int32),
+                    kv_at=got[6], max_q=int(lens.max()),
+                    max_k=int(ctx.max()))
+    return meta
+
+
+def _lower_right(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """One row's attention: q (n, H, hd) against k, v (ctx, KV, hd), the
+    queries at the last n of the ctx positions, causal."""
+    from torch.nn.attention.bias import causal_lower_right
+    n, ctx = q.shape[0], k.shape[0]
+    return F.scaled_dot_product_attention(
+        q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+        v.transpose(0, 1)[None],
+        attn_mask=causal_lower_right(n, ctx) if n > 1 else None,
+        scale=scale, enable_gqa=True)[0].transpose(0, 1)
+
+
+def _varlen(q: Tensor, k: Tensor, v: Tensor, cu_q: Tensor, cu_k: Tensor,
+            max_q: int, max_k: int, scale: float) -> Tensor:
+    """Flash attention over packed rows (``cu_q``/``cu_k`` their int32
+    offsets), causal from each row's bottom right."""
+    return torch.ops.aten._flash_attention_forward(
+        q, k, v, cu_q, cu_k, max_q, max_k, 0.0, True, False,
+        scale=scale)[0]
+
+
+def _attn_extend(p, x: Tensor, cfg: ModelConfig, cache: Dict[str, Tensor],
+                 layer: int, meta: Dict[str, Any]) -> Tensor:
+    """GQA over a packed ragged chunk x (N, d): each token's k and v
+    written into attention layer ``layer``'s cache (rows, S, KV, hd) at
+    its row and position (int8 codes and per-(token, head) scales for an
+    int8 cache), then each row's queries against its cache from 0 to its
+    last new position, causal from the bottom right: one packed flash
+    call over every row's cached k, v on the card (``meta["kv_at"]``
+    gathers them; it raises where the flash call cannot run), one call
+    a row elsewhere and for an int8 cache."""
+    a = cfg.attn
+    scale = a.query_scale or cfg.head_dim ** -0.5
+    pos, at_row = meta["pos"], meta["at_row"]
+    q = L.linear(x, p["wq"], cfg.quant, "serve")
+    k = L.linear(x, p["wk"], cfg.quant, "serve")
+    v = L.linear(x, p["wv"], cfg.quant, "serve")
+    if a.qk_norm:
+        q, k = L.qk_norm(p, q, k, cfg)
+    q = L.apply_rope(q[None], pos[None], a.rope_theta)[0]
+    k = L.apply_rope(k[None], pos[None], a.rope_theta)[0]
+    kc, vc = cache["k"][layer], cache["v"][layer]
+    scaled = kc.dtype == torch.int8
+    if scaled:
+        ks, vs = cache["k_scale"][layer], cache["v_scale"][layer]
+        (k, k_s), (v, v_s) = L._q8(k.float()), L._q8(v.float())
+        ks.index_put_((at_row, pos), k_s)
+        vs.index_put_((at_row, pos), v_s)
+    kc.index_put_((at_row, pos), k.to(kc.dtype))
+    vc.index_put_((at_row, pos), v.to(vc.dtype))
+    if "kv_at" in meta and not scaled:
+        flat = lambda c: c.reshape(-1, *c.shape[2:])[meta["kv_at"]]
+        out = _varlen(q, flat(kc).to(q.dtype), flat(vc).to(q.dtype),
+                      meta["cu_q"], meta["cu_k"], meta["max_q"],
+                      meta["max_k"], scale)
+    else:
+        def held(c, sc, r, ctx):
+            """Row r's first ctx cached entries, dequantised."""
+            t = c[r, :ctx].float() * sc[r, :ctx, :, None] if scaled \
+                else c[r, :ctx]
+            return t.to(q.dtype)
+        out = torch.empty_like(q)
+        at = 0
+        for r, s0, n in zip(meta["rows"], meta["starts"], meta["lens"]):
+            ctx = s0 + n
+            out[at:at + n] = _lower_right(
+                q[at:at + n], held(kc, scaled and ks, r, ctx),
+                held(vc, scaled and vs, r, ctx), scale)
+            at += n
+    return L.linear(out.reshape(x.shape[0], -1), p["wo"], cfg.quant, "serve")
+
+
+def forward_extend(params, cache: Dict[str, Tensor], batch: Dict[str, Any],
+                   cfg: ModelConfig,
+                   probe: Optional[ExtendProbe] = None) -> Tensor:
+    """Append a ragged chunk of tokens to each row's cache, in place.
+
+    ``batch``: ``tokens`` (N,) the rows' new tokens packed in row order,
+    and per row (host ints) ``rows`` its row of the cache, ``starts`` its
+    first new position and ``lens`` its token count.  Row r's tokens take
+    positions ``starts[r] .. starts[r] + lens[r] - 1``, attend to its
+    cache below them, and continue its conv state; the new k, v and conv
+    states are written into ``cache`` (``cache_spec``'s ``k``, ``v``,
+    their scales for an int8 KV cache, and ``conv``).  A row starting over is given position 0 and a zeroed
+    conv state by the caller.  Returns each row's last-token logits (R,
+    V) float32.  Configs with ``layer_types`` (LFM2) only."""
+    if cfg.layer_types is None or set(cfg.layer_kinds()) - {"conv", "attn"}:
+        raise ValueError(f"{cfg.name}: forward_extend runs conv and "
+                         f"attention layers given as layer_types")
+    probe = probe or ExtendProbe()
+    dev = batch["tokens"].device
+    meta = _ragged_meta(batch["rows"], batch["starts"], batch["lens"],
+                        cache["k"].shape[2], dev, dev.type == "cuda")
+    rows_t = meta["rows_t"]
+    taps, tail = SC.ragged_taps(meta["lens"], cfg.conv_width - 1, dev)
+    h = _embed(params, {"tokens": batch["tokens"][None]}, cfg)[0]
+    ci = ai = mi = 0
+    for i, (p, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
+        x = L.norm_apply(p["ln1"], h, cfg)
+        with probe.section(f"lfm2.{kind}"):
+            if kind == "conv":
+                y, state = SC.conv_extend(p["mixer"], x, cfg,
+                                          cache["conv"][ci][rows_t], taps,
+                                          tail)
+                cache["conv"][ci].index_copy_(0, rows_t,
+                                              state.to(cache["conv"].dtype))
+                ci += 1
+            else:
+                y = _attn_extend(p["mixer"], x, cfg, cache, ai, meta)
+                ai += 1
+        h = h + y.to(h.dtype)
+        x = L.norm_apply(p["ln2"], h, cfg)
+        if cfg.moe_layer(i):
+            with probe.section("lfm2.moe"):
+                y = MOE.moe_dropless(p["mlp"], x, cfg, None if probe.claims
+                                     is None else probe.claims[mi])
+            mi += 1
+        else:
+            with probe.section("lfm2.mlp"):
+                y = L.mlp_apply(p["mlp"], x, cfg, "serve")
+        h = h + y.to(h.dtype)
+    h = L.norm_apply(params["final_norm"], h[meta["last"]], cfg)
+    return _logits(params, h, cfg)
 
 
 # ---------------------------------------------------------------------------

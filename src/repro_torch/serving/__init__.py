@@ -8,6 +8,9 @@ scatters to), waves double-buffered against device compute, tail latency
 bounded by a deadline, and guarded execution down the bit-identical
 engine ladder.
 
+Chat sessions of an LM with carried state (LFM2's KV and conv state in a
+device session table) are served the same way by :class:`SessionServer`.
+
 Scale-out: :class:`ClusterServer` puts N replica servers behind a
 consistent-hash front door (:class:`HashRing`), so each stream's carry
 stays on one replica.  Chaos drills: a seeded :class:`FaultInjector`
@@ -35,7 +38,17 @@ __all__ = [
     "ClusterConfig", "ClusterServer", "DeviceStateStore", "ExecutionGuard",
     "FaultConfig", "FaultInjector", "GuardOutcome", "HashRing",
     "InjectedFault", "MetricsSink", "OverloadPolicy", "ResiliencePolicy",
-    "ServerOverloaded", "ServingConfig", "SlotAllocator", "StateStore",
+    "ServerOverloaded", "ServingConfig", "SessionResult", "SessionServer", "SlotAllocator", "StateStore",
     "StreamResult", "StreamServer", "StreamState", "Wave", "WaveRecord",
     "WaveScheduler", "WaveTimeout", "serve_windows",
 ]
+
+
+def __getattr__(name):
+    """``SessionServer`` and ``SessionResult`` on first use: their module
+    imports the LM stack (``models.transformer``), which the streams'
+    serving path does not need and would pay for at every import."""
+    if name in ("SessionServer", "SessionResult"):
+        from repro_torch.serving import sessions
+        return getattr(sessions, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -47,7 +47,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import (Callable, Deque, Dict, Hashable, List, Optional,
+from typing import (Any, Callable, Deque, Dict, Hashable, List, Optional,
                     Tuple)
 
 import numpy as np
@@ -117,7 +117,8 @@ class Slot:
 class Wave:
     """One assembled wave, ready for the compute thread."""
 
-    x: np.ndarray                             # (batch, T, M) float32
+    x: Any                                    # (batch, T, M) float32, or
+                                              # the scheduler's assemble(rows)
     slots: Tuple[Slot, ...]                   # one per real row
     t_oldest: float                           # submit time of oldest window
     deadline_flush: bool                      # partial wave forced by deadline
@@ -152,13 +153,18 @@ class WaveScheduler:
                  one_per_stream: bool, deadline_s: Optional[float] = None,
                  queue_depth: int = 2, max_pending: Optional[int] = None,
                  overload: Optional[OverloadPolicy] = None,
-                 on_shed: Optional[Callable[[Slot], None]] = None):
+                 on_shed: Optional[Callable[[Slot], None]] = None,
+                 assemble: Optional[Callable[[List[Any]], Any]] = None):
         """``batch``: static wave size; ``queue_depth``: assembled waves the
         compute thread may fall behind by; ``max_pending``: bound on
         unassembled windows (None -> 4 * batch); ``overload``: admission/
         shedding policy (None = always block, never shed); ``on_shed``:
         called (assembler thread) once per shed window with its
-        :class:`Slot` so the owner can emit an error result."""
+        :class:`Slot` so the owner can emit an error result;
+        ``assemble``: builds a wave's ``x`` from its real windows alone
+        (ragged requests: ``SessionServer``'s turns); by default the
+        windows are padded to ``batch`` by repeating the last and stacked
+        into one ``(batch, T, M)`` array."""
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         if queue_depth < 1:
@@ -173,6 +179,7 @@ class WaveScheduler:
         self.overload = overload
         self._on_shed = on_shed
         self._execute = execute
+        self._assemble = assemble
         self._one_per_stream = one_per_stream
         self._pending: List[_Pending] = []
         self._cond = threading.Condition()
@@ -440,11 +447,16 @@ class WaveScheduler:
     def _build_wave(self, chosen: List[_Pending], deadline_flush: bool,
                     t_selected: float) -> Wave:
         rows = [p.window for p in chosen]
-        # Pad the partial wave to the static shape by repeating the last
-        # real window; padded rows are computed and DROPPED — they are
-        # never emitted as results and never touch the state store.
-        rows.extend([rows[-1]] * (self.batch - len(rows)))
-        return Wave(x=np.stack(rows, axis=0),
+        if self._assemble is not None:
+            x = self._assemble(rows)
+        else:
+            # Pad the partial wave to the static shape by repeating the
+            # last real window; padded rows are computed and DROPPED —
+            # they are never emitted as results and never touch the
+            # state store.
+            rows.extend([rows[-1]] * (self.batch - len(rows)))
+            x = np.stack(rows, axis=0)
+        return Wave(x=x,
                     slots=tuple(Slot(p.stream_id, p.seq, p.sub_idx,
                                      p.t_submit) for p in chosen),
                     t_oldest=min(p.t_submit for p in chosen),

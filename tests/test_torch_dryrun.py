@@ -32,7 +32,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from gloo_ranks import run_ranks
 from repro_torch.analysis import hlo as thlo
 from repro_torch.analysis import report as treport
-from repro_torch.configs import (ARCH_CONFIGS, ASSIGNED_ARCHS, SHAPES,
+from repro_torch.configs import (ARCH_CONFIGS, REFERENCE_LM_ARCHS, SHAPES,
                                  input_specs, reduce_config, shape_applicable)
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch import dryrun as D
@@ -62,7 +62,7 @@ def ref():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.usefixtures("ref")
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_shape_applicable_and_input_specs_match_reference(arch):
     dtypes = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16}
     assert list(SHAPES) == list(J_SHAPES)
@@ -353,6 +353,26 @@ def test_a_one_rank_world_moves_nothing(fake_world, kind):
     assert rec["status"] == "ok" and rec["mesh"] == "1x1"
     assert rec["collectives"] == {"total": 0, "count": 0}
     assert rec["flops_per_device"] == rec["flops_global"]
+
+
+def test_lfm2_shapes_and_dry_run_cells(fake_world):
+    """The port's own LFM2-8B-A1B (no JAX counterpart): its inputs per
+    cell, the 500k-token decode skipped as for any full-attention arch,
+    and the other cells recorded as skipped by the dry run, whose fake
+    tensors cannot size the dropless MoE's products."""
+    cfg = ARCH_CONFIGS["lfm2-8b-a1b"]
+    fake_world((2, 4))
+    for name, shape in SHAPES.items():
+        specs = input_specs(cfg, shape)
+        b = shape.global_batch
+        s = 1 if shape.kind == "decode" else shape.seq_len
+        assert specs["tokens"] == ((b, s), torch.int32, ("batch", None))
+        assert ("cache_pos" in specs) == (shape.kind == "decode")
+        rec = D.run_cell("lfm2-8b-a1b", name, False)
+        assert rec["status"] == "skipped", name
+        why = "quadratic" if name == "long_500k" else "dropless"
+        assert shape_applicable(cfg, shape)[0] == (name != "long_500k")
+        assert why in rec["reason"], name
 
 
 def test_skipped_cell_and_reports_render(records, fake_world):

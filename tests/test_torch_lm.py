@@ -75,7 +75,7 @@ def test_config_matches_reference(reduced):
     j, t = J_ARCHS[ARCH], ARCH_CONFIGS[ARCH]
     if reduced:
         j, t = j_reduce(j), reduce_config(t)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert shared_asdict(t, j) == dataclasses.asdict(j)
     assert t.layer_kinds() == j.layer_kinds()
     for seq in (8, 2048, 4096):
         assert t.layer_windows(seq) == j.layer_windows(seq)
@@ -85,21 +85,42 @@ def test_config_matches_reference(reduced):
         {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
 
 
+def shared_asdict(t, j):
+    """``dataclasses.asdict(t)`` of a port config over the fields the
+    reference's ``j`` has; each field only the port has (LFM2's) must
+    hold its default."""
+    out = {}
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if not hasattr(j, f.name):
+            assert v == f.default, f.name
+        elif dataclasses.is_dataclass(v) and getattr(j, f.name) is not None:
+            out[f.name] = shared_asdict(v, getattr(j, f.name))
+        else:
+            out[f.name] = dataclasses.asdict(v) \
+                if dataclasses.is_dataclass(v) else v
+    return out
+
+
 @pytest.mark.usefixtures("ref")
 def test_registry_resolves_every_arch():
-    """All eleven of the reference's archs resolve, in its order, and
-    every LM arch's published and reduced configs equal the reference's."""
+    """All eleven of the reference's archs resolve, in its order, then the
+    port's own LFM2-8B-A1B, and every LM arch the reference has keeps its
+    published and reduced configs equal to the reference's."""
     from repro.configs import ASSIGNED_ARCHS as J_ASSIGNED
-    from repro_torch.configs import ASSIGNED_ARCHS
-    assert list(ARCH_CONFIGS) == list(J_ARCHS) and len(ARCH_CONFIGS) == 11
-    assert ASSIGNED_ARCHS == J_ASSIGNED
-    assert registry.list_archs() == sorted(J_ARCHS)
-    for name in J_ARCHS:
+    from repro_torch.configs import (ASSIGNED_ARCHS, REFERENCE_ARCHS,
+                                     REFERENCE_LM_ARCHS)
+    assert REFERENCE_ARCHS == list(J_ARCHS) and len(REFERENCE_ARCHS) == 11
+    assert list(ARCH_CONFIGS) == REFERENCE_ARCHS + ["lfm2-8b-a1b"]
+    assert REFERENCE_LM_ARCHS == J_ASSIGNED
+    assert ASSIGNED_ARCHS == J_ASSIGNED + ["lfm2-8b-a1b"]
+    assert registry.list_archs() == sorted(ARCH_CONFIGS)
+    for name in ARCH_CONFIGS:
         assert registry.get_config(name) is ARCH_CONFIGS[name]
-    for name in ASSIGNED_ARCHS:
+    for name in REFERENCE_LM_ARCHS:
         j, t = J_ARCHS[name], ARCH_CONFIGS[name]
-        assert dataclasses.asdict(t) == dataclasses.asdict(j), name
-        assert dataclasses.asdict(reduce_config(t)) == \
+        assert shared_asdict(t, j) == dataclasses.asdict(j), name
+        assert shared_asdict(reduce_config(t), j_reduce(j)) == \
             dataclasses.asdict(j_reduce(j)), name
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("no-such-arch")

@@ -31,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import (ARCH_CONFIGS, ASSIGNED_ARCHS, SHAPES,
+from repro_torch.configs import (ARCH_CONFIGS, ASSIGNED_ARCHS,
+                                 REFERENCE_LM_ARCHS, SHAPES,
                                  reduce_config)
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.core.quant import QuantConfig
@@ -140,7 +141,7 @@ def _close_logits(got, want, dtype, what="", f32_tol=F32_TOL):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.usefixtures("ref")
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_init_tree_shapes_axes_and_counts_match_reference(arch):
     """Same keys, list lengths, shapes and logical axes; num_params and
     num_active_params equal the reference's at the reduced and the
@@ -173,7 +174,7 @@ def test_init_tree_shapes_axes_and_counts_match_reference(arch):
 # the whole model: prefill, decode through a ring wrap, prefill vs decode
 # ---------------------------------------------------------------------------
 
-CASES = [(a, d, h) for a in ASSIGNED_ARCHS for d in ("float32", "bfloat16")
+CASES = [(a, d, h) for a in REFERENCE_LM_ARCHS for d in ("float32", "bfloat16")
          for h in (False, True)]
 CASE_IDS = [f"{a}-{d}-{'hard' if h else 'soft'}" for a, d, h in CASES]
 
@@ -250,7 +251,7 @@ def test_prefill_equals_sequential_decode(arch, dtype, hard):
 
 
 @pytest.mark.usefixtures("ref")
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_w8a8_int8_kv_decode_matches_reference(arch):
     """Quantised serve weights (the reference's codes carried across) and
     an int8 KV cache: every step's logits within F32_DECODE_TOL of the

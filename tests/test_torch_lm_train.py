@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCH_CONFIGS, ASSIGNED_ARCHS, reduce_config
+from repro_torch.configs import ARCH_CONFIGS, REFERENCE_LM_ARCHS, reduce_config
 from repro_torch.convert import lm_params_from_reference, params_from_reference
 from repro_torch.core import quant as TQ
 from repro_torch.core.qlstm import QLSTMConfig
@@ -156,7 +156,7 @@ def check_train_parity(arch, loss_rtol, grad_tol, **kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.usefixtures("ref")
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_forward_train_loss_and_gradients_match_jax_f32(arch):
     tg = check_train_parity(arch, F32_LOSS_RTOL, F32_GRAD_TOL)
     assert any(np.abs(g).max() > 0 for g in tg.values())

@@ -19,7 +19,7 @@ Tolerances:
 
 import pytest
 
-from repro_torch.configs import ASSIGNED_ARCHS
+from repro_torch.configs import REFERENCE_LM_ARCHS
 
 from test_torch_lm_train import F32_GRAD_TOL, F32_LOSS_RTOL, check_train_parity, ref  # noqa: F401
 
@@ -39,6 +39,6 @@ def test_forward_train_hard_acts_matches_jax(arch):
 
 
 @pytest.mark.usefixtures("ref")
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_forward_train_loss_and_gradients_match_jax_bf16(arch):
     check_train_parity(arch, BF16_LOSS_RTOL, BF16_GRAD_TOL, dtype="bfloat16")

@@ -14,7 +14,7 @@ import torch
 
 from hypothesis_compat import given, settings, st
 
-from repro_torch.configs import ARCH_CONFIGS, ASSIGNED_ARCHS, reduce_config
+from repro_torch.configs import ARCH_CONFIGS, REFERENCE_LM_ARCHS, reduce_config
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.core.quant import (W8, W8A8, QuantConfig, compute_scale,
                                     fake_quant_tensor, qmatmul, quantize_kv,
@@ -212,7 +212,7 @@ def test_w8_linear_matches_reference(dtype):
 
 @pytest.mark.usefixtures("ref")
 @pytest.mark.parametrize("p2", [True, False], ids=["p2", "free"])
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_quantize_model_params_equal_reference(arch, p2):
     """Every arch's serve weights: the same leaves quantised (the
     reference's exclusion lists), int8 codes and f32 scales bit for bit,

@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
-from repro_torch.configs import ARCH_CONFIGS, ASSIGNED_ARCHS, reduce_config
+from repro_torch.configs import ARCH_CONFIGS, REFERENCE_LM_ARCHS, reduce_config
 from repro_torch.configs.base import batch_axes
 from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
@@ -140,7 +140,7 @@ def test_logical_to_spec_matches_reference(mesh_name, axes, shape):
 
 @pytest.mark.usefixtures("ref")
 @pytest.mark.parametrize("mesh_name", sorted(PRODUCTION))
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_param_shardings_match_reference_for_every_arch(arch, mesh_name):
     """Every leaf's spec at the published widths and at ``reduce_config``'s,
     on (16, 16) and (2, 16, 16): phi3.5-moe's expert-parallel override
@@ -155,9 +155,40 @@ def test_param_shardings_match_reference_for_every_arch(arch, mesh_name):
         assert specs["blocks/mlp/w_up"] == (None, "model", "data", None)
 
 
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("mesh_name", sorted(PRODUCTION))
+def test_lfm2_param_and_cache_shardings(mesh_name, reduced):
+    """The port's own LFM2-8B-A1B (no JAX counterpart) on the production
+    meshes: every leaf of its per-layer tree gets a spec from the rules,
+    each split dim divides, the experts' width splits over ``model``
+    where it divides, and the session table's KV and conv state split
+    their batch."""
+    from repro_torch.launch.serve import cache_shardings
+    cfg = ARCH_CONFIGS["lfm2-8b-a1b"]
+    cfg = reduce_config(cfg) if reduced else cfg
+    mesh = StubMesh(PRODUCTION[mesh_name])
+    params, _ = T.init_model(cfg, None)
+    specs = _port_specs(cfg, mesh)
+    shapes = _flat(params, lambda t: tuple(t.shape))
+    assert set(specs) == set(shapes) and len(specs) > 10 * cfg.n_layers
+    for path, spec in specs.items():
+        for dim, ax in zip(shapes[path], spec):
+            names = (ax,) if isinstance(ax, str) else tuple(ax or ())
+            assert dim % int(np.prod([mesh.shape[n] for n in names])) == 0, \
+                (path, spec)
+    moe = next(i for i in range(cfg.n_layers) if cfg.moe_layer(i))
+    f = cfg.moe.d_ff
+    assert specs[f"layers/{moe}/mlp/w_up"][-1] == \
+        ("model" if f % mesh.shape["model"] == 0 else None)
+    cache = {k: v.spec for k, v in
+             cache_shardings(cfg, 256, 8192, mesh).items()}
+    assert set(cache) == {"k", "v", "conv"}
+    assert cache["conv"][1] is not None and cache["k"][1] is not None
+
+
 @pytest.mark.usefixtures("ref")
 @pytest.mark.parametrize("quantize_kv", [False, True], ids=["bf16-kv", "int8-kv"])
-@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_LM_ARCHS)
 def test_cache_spec_matches_reference(arch, quantize_kv):
     """Names, shapes, dtypes and logical axes of the decode cache, the
     PRODUCTION_TP choice between ``kv_heads`` and ``kv_seq`` included."""
