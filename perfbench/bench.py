@@ -21,7 +21,8 @@ the file of the part of the name before its first dot).  A run:
 3. stops sending, waits for every answer (up to a minute), reads the
    peak device memory and closes the server;
 4. runs the plain reference over every request sent and compares each
-   answer with it (``perfbench/compare.py``);
+   answer with it (``perfbench/compare.py``), and adds the numbers the
+   system compares itself (its optional ``checks``);
 5. prints the comparison's numbers beside their limits on standard
    error, and one JSON line on standard output.
 """
@@ -130,7 +131,9 @@ class Run:
     ``counters``) read at ``t1``; ``trace`` the traced sub-window
     (``--trace 1``), with ``trace_counters`` read at its ends.
     ``dims``, ``bits`` and ``ops_per_window`` are the system's, or None
-    where it does not give them."""
+    where it does not give them; ``program_sink`` the program's stage
+    record as the system's ``sink`` gives it, read once the server has
+    closed (None: ``program_record.py``'s own pick)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -209,7 +212,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     spans = Spans()
     prof = Profiler(spans, cuda=cuda,
                     datapath=getattr(system, "DATAPATH", None),
-                    labels=getattr(system, "SPANS", ()))
+                    labels=getattr(system, "SPANS", ()),
+                    kernel=getattr(system, "WAVE_KERNEL", None))
     if trace:
         if hasattr(system, "instrument"):
             system.instrument(spans, server)
@@ -254,6 +258,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     leaked = server.close(timeout=30.0)
     if leaked:
         raise RuntimeError(f"server threads left running: {leaked}")
+    program_sink = system.sink(server) if hasattr(system, "sink") else None
+    own_checks = system.checks(server) if hasattr(system, "checks") else {}
     del server, session
     if cuda:
         torch.cuda.empty_cache()
@@ -266,7 +272,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
               bits=fmt[1] if fmt else None, trace=result_trace,
               trace_counters=trace_counters, trace_refused=refused,
               setup_s=setup_s, gc_events=gc_pauses.events,
-              ops_per_window=given("ops_per_window"))
+              ops_per_window=given("ops_per_window"),
+              program_sink=program_sink)
     values = {}
     for mt in metrics:
         v = readers[mt["name"]].read(run)
@@ -275,6 +282,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     checks = compare.check(reference, cfg, weights, stream, k,
                            windows.take(stream, k), y, device=device)
+    checks.update(own_checks)
     out = {"correct": all(c["value"] <= c["limit"] for c in checks.values()),
            "attempted": int(len(stream)),
            "failed": int(np.count_nonzero(~ok)),

@@ -15,6 +15,13 @@ waits in ``poll`` for the next results and stamps them as they come.  A
 ``submit`` that blocks under backpressure makes the sender late; latency
 is counted from the due time, so the wait shows, and answers are still
 polled while the sender waits.
+
+``run_until(t_stop)`` returns at ``t_stop`` (or as the ``submit`` under
+way then returns), whether or not arrivals already due are still unsent:
+it looks at the clock before each ``submit``.  Above the server's
+capacity ``submit`` blocks and the sender falls behind its schedule; the
+arrivals it has not sent by the close are sent by the next ``run_until``
+(the traced sub-window) or never, and ``drain`` waits for what was sent.
 """
 
 from __future__ import annotations
@@ -100,7 +107,7 @@ class OpenLoop:
                 return
             i = self.i
             t_first = now
-            while i < n and t0 + due[i] <= now:
+            while i < n and t0 + due[i] <= now < t_stop:
                 self._submit(self.sched_stream[i], self.sched_k[i],
                              t0 + due[i])
                 i += 1

@@ -6,7 +6,9 @@ The program keeps one row per window it computed, keyed by ``(stream_id,
 seq)``, with the stamps of the window and of its wave on the host clock
 (``repro_torch.serving.metrics``: ``current_sinks`` gives each server's
 current sink after the server is closed, ``MetricsSink.windows`` its
-rows and the stages between the stamps).  A client row's ``seq`` is its
+rows and the stages between the stamps).  A system whose server is many
+servers gives the record to read itself (its ``sink``, as
+``MetricsSink.merge`` of theirs).  A client row's ``seq`` is its
 rank within its stream in sending order, as the server numbers a
 stream's windows.
 
@@ -29,8 +31,13 @@ _CACHE = "_program_record"
 
 
 def sink(run):
-    """The run's server's current sink (the newest server's), or None
-    where the program keeps no such record."""
+    """The run's server's current sink: the one its system gives
+    (``run.program_sink``: for ``qlstm_cluster``, its replicas' sinks
+    merged), else the newest server's; None where the program keeps no
+    such record."""
+    own = getattr(run, "program_sink", None)
+    if own is not None:
+        return own
     try:
         from repro_torch.serving import metrics
     except ImportError:

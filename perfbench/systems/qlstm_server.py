@@ -32,6 +32,9 @@ from perfbench.traffic import Windows
 # guarded datapath, which a whole trace sees once for each wave counted.
 DATAPATH = "server.datapath"
 SPANS = (DATAPATH, "server.execute", "server.assemble")
+# The kernel every datapath call launches and waits for: K3, replayed
+# from the wave's CUDA graph (a whole trace holds one a datapath span).
+WAVE_KERNEL = "qlstm_rows_kernel"
 
 
 def dims(cfg: Dict) -> Tuple[int, int, int, int, int]:
@@ -87,15 +90,13 @@ def make_weights(cfg: Dict, seed: int, device) -> Dict[str, np.ndarray]:
     return out
 
 
-def build_server(cfg: Dict, weights: Dict[str, np.ndarray], mix, device):
-    """The quantised session and its ``StreamServer`` (``max_streams`` =
-    the mix's streams); raises when the plan or the carry's placement is
-    not the one the configuration expects."""
+def quantised_session(cfg: Dict, weights: Dict[str, np.ndarray], device):
+    """The quantised session on ``device``; raises when its plan is not
+    the one the configuration expects."""
     import repro_torch
     from repro_torch.core.accelerator import AcceleratorConfig
     from repro_torch.core.fixed_point import FixedPointConfig
     from repro_torch.core.qlstm import ActivationConfig, QLSTMConfig
-    from repro_torch.serving import StreamServer
 
     mc, ac = cfg["model"], cfg["accelerator"]
     acts = ActivationConfig(gate=mc["gate"], cell=mc["cell_act"],
@@ -121,6 +122,16 @@ def build_server(cfg: Dict, weights: Dict[str, np.ndarray], mix, device):
         if session.plan[key] != want:
             raise RuntimeError(f"plan[{key!r}] is {session.plan[key]!r}, "
                                f"the configuration expects {want!r}")
+    return session
+
+
+def build_server(cfg: Dict, weights: Dict[str, np.ndarray], mix, device):
+    """The quantised session and its ``StreamServer`` (``max_streams`` =
+    the mix's streams); raises when the plan or the carry's placement is
+    not the one the configuration expects."""
+    from repro_torch.serving import StreamServer
+
+    session = quantised_session(cfg, weights, device)
     server = StreamServer(session, batch=mix.batch, deadline_s=mix.deadline_s,
                           max_streams=mix.streams)
     if server.state_residency != cfg["expect_plan"]["state_residency"]:

@@ -10,7 +10,8 @@ from perfbench.control import readings
 
 @pytest.mark.parametrize("workload,mix", [
     ("pems-steady", {"rate_per_s": 4000.0}),
-    ("pems-steady", {"rate_per_s": 2000.0, "streams": 40})])
+    ("pems-steady", {"rate_per_s": 2000.0, "streams": 40}),
+    ("pems-cluster4", {"rate_per_s": 4000.0})])
 def test_control_is_not_correct(workload, mix):
     got = readings(workload, 2 ** 31 + 7, 0.05, mix_overrides=mix)
     assert got["windows"] > 50

@@ -213,3 +213,18 @@ def test_knee_rule_reads_the_backlog_not_the_tail(rate, want):
     late = dict(row, held_share=0.0,
                 p90_last_fifth_ms=2 * row["p90_first_fifth_ms"])
     assert not sustained(late, 1.5)
+
+
+def test_tiny_saturated_lfm2_cell_is_held_and_stops_at_its_close(tiny_root):
+    """Offered far above what the CPU serves, the tiny LFM2 cell's sender
+    is held by backpressure, stops at the window's close with most
+    arrivals unsent, and every turn it sent is answered and within the
+    reference's limits."""
+    mix = dict(SMALL_MIX, rate_per_s=2000)
+    out, run = run_cell("lfm2-chat-ttft", SEED + 1, 2.0, False,
+                        device="cpu", root=tiny_root, mix_overrides=mix)
+    assert out["correct"], out["checks"]
+    assert out["failed"] == 0 and 0 < out["attempted"] < 0.5 * 2000 * 2.0
+    assert (run.sub < run.t1).all()
+    assert np.count_nonzero(run.ret - run.sub > 0.005) > 0   # held
+    assert out["metrics"]["windows_per_s"]["value"] < 0.5 * 2000

@@ -125,3 +125,48 @@ def test_a_planted_fault_reaches_the_datapath_through_the_hook():
                                   "deadline_s": 0.5, "rate_per_s": 400})[0]
     assert out["correct"], out["checks"]
     assert len(seen) >= out["attempted"] // 8
+
+
+def test_the_cluster_configuration_is_lstm_pems_with_four_replicas():
+    """``lstm-pems-cluster4`` is ``lstm-pems`` field for field, with
+    ``qlstm_cluster`` as its system, four replicas, the ring's settings
+    and the layout among its assumptions; it loads that system, which
+    takes ``qlstm_server``'s requests, weights, answer and counts by
+    import."""
+    spec = Spec()
+    cfg, base = spec.config("lstm-pems-cluster4"), spec.config("lstm-pems")
+    assert cfg.pop("system") == "qlstm_cluster" and cfg.pop("replicas") == 4
+    assert (cfg.pop("vnodes"), cfg.pop("ring_seed")) == (64, 0)
+    assert cfg["assumed"].pop().startswith("the layout: 4 replicas")
+    assert {**cfg, "name": "lstm-pems"} == {k: v for k, v in base.items()
+                                            if k != "system"}
+    assert cfg["reference"] == "qlstm"
+    system = spec.module("systems", "qlstm_cluster")
+    for name in ("payload", "make_weights", "dims", "fmt_bits",
+                 "ops_per_window", "answer_width"):
+        assert getattr(system, name) is getattr(qlstm_server, name)
+    for name in ("build_server", "warm", "counters", "sink", "checks",
+                 "instrument", "inject"):
+        assert callable(getattr(system, name))
+    wl = spec.workload("pems-cluster4")
+    assert (wl["config"], wl["traffic"], wl["chips"]) == \
+        ("lstm-pems-cluster4", spec.workload("pems-steady")["traffic"], 1)
+    assert {m["name"] for m in spec.metrics("pems-cluster4", True)} == \
+        {m["name"] for m in spec.metrics("pems-steady", True)}
+
+
+def test_the_clusters_ring_is_the_routers_rule():
+    """The replica each stream hashes to, as ``qlstm_cluster`` computes it
+    from the ring's published rule, is the one the program's router
+    picks for every stream of the cell."""
+    from perfbench.systems import qlstm_cluster
+    from repro_torch.serving.routing import HashRing
+    cfg = Spec().config("lstm-pems-cluster4")
+    names = qlstm_cluster.names(cfg)
+    assert names == ["r0", "r1", "r2", "r3"]
+    ring = HashRing(names, vnodes=cfg["vnodes"], seed=cfg["ring_seed"])
+    homes = qlstm_cluster.ring_homes(names, range(8600), cfg["vnodes"],
+                                     cfg["ring_seed"])
+    assert all(homes[s] == ring.route(s) for s in range(8600))
+    share = np.bincount([names.index(h) for h in homes.values()]) / 8600
+    assert share.min() > 0.15 and share.max() < 0.35

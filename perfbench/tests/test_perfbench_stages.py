@@ -26,11 +26,13 @@ class _Result:
         self.record = record
 
 
-def _made(n=64, streams=5, rows=1 << 10, seed=3, launched=True):
+def _made(n=64, streams=5, rows=1 << 10, seed=3, launched=True, servers=1):
     """A run of ``n`` windows over ``streams`` streams in waves of
     ``WAVE``, and the program's record of them in a sink of ``rows``
     rows, published as the newest server's; without a launch stamp
-    unless ``launched``."""
+    unless ``launched``.  With ``servers`` over 1, the waves go to that
+    many sinks in turn, each published as a server's, as a cluster's
+    replicas record them; the third item is then the sinks."""
     rng = np.random.default_rng(seed)
     t0 = 100.0
     i = np.arange(n)
@@ -40,7 +42,7 @@ def _made(n=64, streams=5, rows=1 << 10, seed=3, launched=True):
     # Per wave and stage; a wave ends before the next starts, as on the
     # server's one compute thread.
     gaps = rng.uniform(1e-5, 5e-4, (n // WAVE, 6))
-    sink = MetricsSink(rows=rows)
+    sinks = [MetricsSink(rows=rows) for _ in range(servers)]
     done = np.empty(n)
     waves = []
     for w in range(n // WAVE):
@@ -49,6 +51,7 @@ def _made(n=64, streams=5, rows=1 << 10, seed=3, launched=True):
         stamps = np.max(t_sub) + np.cumsum(gaps[w, :4])
         slots = [Slot(int(stream[j]), int(j // streams), int(j), float(t))
                  for j, t in zip(at, t_sub)]
+        sink = sinks[w % servers]
         first = sink.record_wave(WaveRecord(
             t_done=stamps[3], compute_s=stamps[3] - stamps[1],
             occupancy=WAVE, batch=8, deadline_flush=True,
@@ -61,11 +64,12 @@ def _made(n=64, streams=5, rows=1 << 10, seed=3, launched=True):
         sink.note_polled([_Result(first + k) for k in range(WAVE)], polled)
         done[at] = polled + 3e-6
         waves.append((stamps[1], emitted[-1]))
-    sm.publish(sm.new_server_id(), sink)
+    for sink in sinks:
+        sm.publish(sm.new_server_id(), sink)
     run = Run(t0=t0, t1=t0 + 0.001 * n, stream=stream, k=i // streams,
               due=due, sub=sub, ret=sub + 1e-5, done=done,
               ok=np.ones(n, bool), trace=None)
-    return run, sink, waves
+    return run, (sinks if servers > 1 else sink), waves
 
 
 def _read(run, name):
@@ -123,3 +127,49 @@ def test_host_path_idle_reads_the_idle_inside_the_waves():
     assert _read(run, "host_path_idle.tail") == pytest.approx(want)
     run.trace = None
     assert _read(run, "host_path_idle.tail") is None
+
+
+def test_host_path_idle_reads_overlapping_waves_once(monkeypatch):
+    """Waves of four compute threads overlap: the idle inside their
+    union is read, once, so four threads waiting together read at most
+    100%, as one thread does."""
+    t_exec = np.array([0.0, 0.5, 3.0])
+    t_emit = np.array([1.0, 1.5, 4.0])
+    rec = {"wave": np.arange(3), "t_exec": t_exec, "t_emitted": t_emit}
+    monkeypatch.setattr(program_record, "record", lambda run: rec)
+    run = Run(trace=TraceResult(0.0, 10.0, [("k", 0.2, 0.3)], []))
+    # [0, 1.5] and [3, 4], less the 0.1 s busy: 2.4 s of 10.
+    assert _read(run, "host_path_idle.tail") == pytest.approx(24.0)
+    rec = {"wave": np.arange(4), "t_exec": np.zeros(4),
+           "t_emitted": np.full(4, 10.0)}
+    monkeypatch.setattr(program_record, "record", lambda run: rec)
+    run = Run(trace=TraceResult(0.0, 10.0, [("k", 9.0, 10.0)], []))
+    assert _read(run, "host_path_idle.tail") == pytest.approx(90.0)
+
+
+def test_a_cluster_is_read_from_its_replicas_merged_record():
+    """The waves of one run recorded by four servers: the system's sink
+    (``MetricsSink.merge`` of the four, as ``qlstm_cluster`` gives it)
+    reads every stage as one server's record of the same waves does;
+    the newest server's alone holds a quarter of the tail and reads
+    nothing."""
+    one = _made()[0]
+    want = {name: _read(one, name) for name in STAGE_METRICS}
+    run, sinks, _ = _made(servers=4)
+    assert all(_read(run, name) is None for name in STAGE_METRICS)
+    run, sinks, _ = _made(servers=4)
+    run.program_sink = MetricsSink.merge(sinks)
+    got = {name: _read(run, name) for name in STAGE_METRICS}
+    assert got == pytest.approx(want, abs=1e-12)
+    assert all(v is not None for v in got.values())
+
+
+def test_a_single_server_is_read_as_before():
+    """Where the system gives no sink (``program_sink`` None), the newest
+    server's sink is read, as before there was a hook."""
+    run, sink, _ = _made()
+    got = {name: _read(run, name) for name in STAGE_METRICS}
+    run2, sink2, _ = _made()
+    run2.program_sink = None
+    assert program_record.sink(run2) is sink2
+    assert {name: _read(run2, name) for name in STAGE_METRICS} == got
